@@ -14,6 +14,7 @@ import time
 import torch
 from torch.func import vmap
 
+from .core.device import resolve
 from .core.problem import VGPData, batch_tile, map_lanes
 from .models.problems import uas_2d
 from .models.tuned import tuned_config, tuned_extras, warm_config
@@ -46,8 +47,10 @@ def make_batch(nlp, data: VGPData, B: int,
 def prepare(B: int, nsteps: int = 50, device=None, seed: int = 0,
             kkt_solver: str = "kernel"):
     """The bench's setup: ``uas_2d`` with the registry's transcription
-    choice and solver config, and a batch of B scattered problems.
+    choice and solver config, and a batch of B scattered problems on
+    ``device`` (the card when none is given).
     Returns (nlp, cfg, stages, data, generator)."""
+    device = resolve(device)
     vgp, nlp = uas_2d(nsteps=nsteps)
     data, _ = vgp.to_device(device=device)
     nlp = dataclasses.replace(
@@ -134,7 +137,8 @@ def run_warm(nlp, cfg_warm, data: VGPData, prev: SolveResult,
 
 def main_path(B: int, nsteps: int = 50, device=None) -> dict:
     """The whole main path: cold (seeds, staged solve, audit), then the
-    warm fleet re-solve on x0 + 0.01."""
+    warm fleet re-solve on x0 + 0.01, on ``device`` (the card when none
+    is given)."""
     nlp, cfg, stages, data, gen = prepare(B, nsteps, device)
     cold = run_cold(nlp, cfg, data, stages, gen)
     cfg_warm, warm_stages = warm_config(cfg, batch=B)

@@ -26,6 +26,7 @@ import torch
 from torch.func import vmap
 
 from . import geometry
+from .device import resolve
 from .types import Dims, ParamConfig, VarType
 
 
@@ -145,7 +146,9 @@ def map_lanes(fn: Callable, data: VGPData, *args):
 def vgpdata_from_numpy(leaves: Sequence, device=None) -> VGPData:
     """Build the port's :class:`VGPData` from the JAX package's VGPData
     leaves as numpy arrays (``[np.asarray(a) for a in
-    jax.tree.leaves(data)]``), keeping their dtypes."""
+    jax.tree.leaves(data)]``), keeping their dtypes, on ``device`` (the
+    card when none is given)."""
+    device = resolve(device)
     return vgpdata_unflatten(
         [torch.tensor(np.asarray(a), device=device) for a in leaves]
     )
@@ -258,8 +261,10 @@ class VGP:
         dtype=torch.float32,
         device=None,
     ) -> Tuple[VGPData, Dims]:
-        """Freeze into padded tensors on ``device`` (the same padding as
+        """Freeze into padded tensors on ``device``, the card when none
+        is given (the same padding as
         ``etol_tpu.core.problem.VGP.to_device``)."""
+        device = resolve(device)
         if dims is None:
             dims = self.dims()
         E = max(dims.max_ellipses, 1)

@@ -11,10 +11,18 @@ returns x [B, K, w] with H x = r, after one refinement pass against the
 stored factor. On a CPU tensor it computes the plain version
 (:func:`etol_tpu_torch.solve.btridiag.solve_refined`); on a CUDA tensor
 it launches the kernel or raises — there is no fallback.
+
+The source holds two kernels and :func:`plan` chooses between them from
+(K, w) alone: the shared-memory kernel (a lane split across w threads of
+a warp, the factor in shared memory, the native layout) wherever one
+lane's factor fits a block's shared memory, and the device-memory kernel
+(one thread a lane, the factor in scratch arrays) for longer horizons.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -28,8 +36,13 @@ from ..solve import btridiag
 #: kernel launches made by :func:`solve` in this process; a run reads it
 #: to show that its KKT solves went through the kernel
 LAUNCHES = 0
+#: the same launches by (variant, batch size)
+LAUNCHES_BY = {}
 
 MAX_W = 9
+WARP = 32
+#: dynamic shared memory one block may ask for on an H100
+SMEM_LIMIT = 232_448
 _SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(__file__)), "csrc", "bt_solve.cu"
 )
@@ -98,8 +111,65 @@ def build() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
+    fn = lib.etol_bt_solve_smem_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
     _LIB = lib
     return _LIB
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How :func:`solve` launches one (K, w, B): ``variant`` "smem" or
+    "global", ``group`` threads a lane, ``lanes_per_block``, ``blocks``,
+    ``threads`` a block, and for "smem" the lane stride in floats and the
+    dynamic shared memory in bytes (0 for "global")."""
+
+    variant: str
+    group: int
+    lanes_per_block: int
+    blocks: int
+    threads: int
+    lane_stride: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(K: int, w: int, B: int, variant: str | None = None) -> Plan:
+    """The launch of a (K, w, B) solve, from the shape alone.
+
+    The shared-memory kernel keeps per lane the packed factor, Lsub, y
+    and c: (p4(w(w+1)/2) + p4(w^2) + 2w) K floats, where p4 rounds up to
+    a multiple of 4 so that a node's factor and its Lsub start on 16
+    bytes and are read four floats a load. The lane stride is an odd
+    multiple of 4 floats, which puts the lanes of a block on different
+    banks. A block is one warp of 32 // w lanes, fewer where shared
+    memory holds fewer. Where not even one lane fits, the device-memory
+    kernel (one thread a lane, 64 a block) runs. ``variant`` forces one
+    of the two, for measurements."""
+    def p4(n):
+        return -(-n // 4) * 4
+
+    per_lane = (p4(w * (w + 1) // 2) + p4(w * w) + 2 * w) * K
+    stride = p4(per_lane)
+    stride += 4 * (stride // 4 % 2 == 0)
+    lanes = min(WARP // w, SMEM_LIMIT // (4 * stride))
+    if variant is None:
+        variant = "smem" if lanes >= 1 else "global"
+    if variant == "smem":
+        if lanes < 1:
+            raise ValueError(
+                f"one lane's factor at K={K}, w={w} needs "
+                f"{4 * stride} bytes of shared memory, a block "
+                f"has {SMEM_LIMIT}"
+            )
+        return Plan("smem", w, lanes, -(-B // lanes), WARP, stride,
+                    4 * lanes * stride)
+    if variant != "global":
+        raise ValueError(f"unknown variant {variant!r}")
+    return Plan("global", 1, 64, -(-B // 64), 64, 0, 0)
 
 
 def _check(D, O, r):
@@ -133,9 +203,10 @@ def _check(D, O, r):
         raise ValueError("K must be at least 1")
 
 
-def solve(D, O, r):
+def solve(D, O, r, variant: str | None = None):
     """x [B, K, w] with H x = r after one refinement pass. CPU tensors:
-    the plain version; CUDA tensors: the kernel, or an error."""
+    the plain version; CUDA tensors: the kernel :func:`plan` names, or an
+    error. ``variant`` forces one of the two kernels, for measurements."""
     global LAUNCHES
     _check(D, O, r)
     if D.device.type == "cpu":
@@ -146,8 +217,31 @@ def solve(D, O, r):
     if B == 0:
         return torch.empty_like(r)
     lib = build()
-    # lane-minor layout [K, n, B]: neighbouring threads (lanes) read
-    # neighbouring addresses
+    pl = plan(K, w, B, variant)
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream(D.device).cuda_stream
+        if pl.variant == "smem":
+            x = torch.empty_like(r)
+            rc = lib.etol_bt_solve_smem_f32(
+                D.data_ptr(), O.data_ptr(), r.data_ptr(), x.data_ptr(),
+                K, w, B, pl.lanes_per_block, pl.lane_stride, pl.smem_bytes,
+                stream,
+            )
+        else:
+            x, rc = _launch_global(lib, D, O, r, stream)
+    if rc != 0:
+        raise RuntimeError(f"bt_solve kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    key = (pl.variant, B)
+    LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + 1
+    return x
+
+
+def _launch_global(lib, D, O, r, stream):
+    """The device-memory kernel: lane-minor copies [K, n, B] (neighbouring
+    threads, which are lanes, read neighbouring addresses) and the
+    factor's scratch arrays. Returns (x [B, K, w], cudaError)."""
+    B, K, w, _ = D.shape
     Dt = D.reshape(B, K, w * w).permute(1, 2, 0).contiguous()
     Ot = O.reshape(B, K - 1, w * w).permute(1, 2, 0).contiguous()
     rt = r.permute(1, 2, 0).contiguous()
@@ -158,14 +252,9 @@ def solve(D, O, r):
                        device=D.device)
     y = torch.empty_like(rt)
     c = torch.empty_like(rt)
-    with torch.cuda.device(D.device):
-        stream = torch.cuda.current_stream(D.device).cuda_stream
-        rc = lib.etol_bt_solve_f32(
-            Dt.data_ptr(), Ot.data_ptr(), rt.data_ptr(), x.data_ptr(),
-            lfac.data_ptr(), lsub.data_ptr(), y.data_ptr(), c.data_ptr(),
-            K, w, B, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"bt_solve kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return x.permute(2, 0, 1).contiguous()
+    rc = lib.etol_bt_solve_f32(
+        Dt.data_ptr(), Ot.data_ptr(), rt.data_ptr(), x.data_ptr(),
+        lfac.data_ptr(), lsub.data_ptr(), y.data_ptr(), c.data_ptr(),
+        K, w, B, stream,
+    )
+    return x.permute(2, 0, 1).contiguous(), rc

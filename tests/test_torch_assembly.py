@@ -62,7 +62,7 @@ def test_blocks_with_user_rows_match():
     jdata, _ = jv.to_device()
     jb = jproblem.batch_tile(jdata, B)
     tb = tproblem.vgpdata_from_numpy(
-        [np.asarray(a) for a in jax.tree.leaves(jb)])
+        [np.asarray(a) for a in jax.tree.leaves(jb)], device="cpu")
     jcfg = jal.SolverConfig(kkt_solver="scan")
     tcfg = tal.SolverConfig(kkt_solver="scan")
 

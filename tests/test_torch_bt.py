@@ -100,3 +100,54 @@ def test_wrapper_rejects_bad_inputs():
         bt_cuda.solve(Dt, Ot[:, :-1], rt)
     with pytest.raises(ValueError, match="contiguous"):
         bt_cuda.solve(Dt.transpose(-1, -2), Ot, rt)
+
+
+LADDER = [(51, 5), (21, 6), (41, 6), (101, 9)]
+BATCHES = [3, 64, 1000, 2048]
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("K,w", LADDER)
+def test_plan_ladder_shapes_take_the_shared_memory_kernel(K, w, B):
+    pl = bt_cuda.plan(K, w, B)
+    assert pl.variant == "smem"
+    assert 0 < pl.smem_bytes <= 232_448
+    assert pl.lanes_per_block >= 1
+    assert pl.group >= w
+    assert pl.group * pl.lanes_per_block <= pl.threads == 32
+    assert pl.blocks * pl.lanes_per_block >= B
+    assert (pl.blocks - 1) * pl.lanes_per_block < B
+    # the factor and Lsub of a node padded to 16 bytes, y and c; the lane
+    # stride an odd multiple of 4 floats (16-byte loads, bank spread)
+    def p4(n):
+        return -(-n // 4) * 4
+
+    per_lane = (p4(w * (w + 1) // 2) + p4(w * w) + 2 * w) * K
+    assert per_lane <= pl.lane_stride <= per_lane + 7
+    assert pl.lane_stride % 8 == 4
+    assert pl.smem_bytes == 4 * pl.lanes_per_block * pl.lane_stride
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("K,w", [(2048, 5), (600, 9)])
+def test_plan_long_horizon_takes_the_device_memory_kernel(K, w, B):
+    pl = bt_cuda.plan(K, w, B)
+    assert pl.variant == "global"
+    assert pl.smem_bytes == 0
+    assert pl.blocks * pl.lanes_per_block >= B
+    with pytest.raises(ValueError, match="shared memory"):
+        bt_cuda.plan(K, w, B, variant="smem")
+
+
+def test_plan_variant_can_be_forced_and_is_checked():
+    assert bt_cuda.plan(51, 5, 64, variant="global").variant == "global"
+    assert bt_cuda.plan(51, 5, 64, variant="smem") == bt_cuda.plan(51, 5, 64)
+    with pytest.raises(ValueError, match="unknown variant"):
+        bt_cuda.plan(51, 5, 64, variant="fast")
+
+
+def test_plan_fewer_lanes_where_shared_memory_holds_fewer():
+    # K=250, w=9: one lane is 144 KB, so a block takes one lane, not 3
+    pl = bt_cuda.plan(250, 9, 10)
+    assert pl.variant == "smem" and pl.lanes_per_block == 1
+    assert pl.blocks == 10 and pl.smem_bytes <= 232_448

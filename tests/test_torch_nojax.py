@@ -46,7 +46,7 @@ def test_cpu_main_path_runs():
     vgp, nlp = problems.uas_2d(nsteps=12, dt=0.4, xf=(4.0, 3.0, 0.0))
     nlp = dataclasses.replace(nlp, obstacle_form="pieces")
     data, _ = vgp.to_device(device="cpu")
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator(device="cpu").manual_seed(0)
     batch = bench_harness.make_batch(nlp, data, B, gen)
     assert batch.x0.shape == (B, 3)
     assert float((batch.x0[:, :2]).abs().max()) <= 0.5

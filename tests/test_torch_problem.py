@@ -42,7 +42,7 @@ def test_uas_to_device_leaves_match_exactly(nsteps):
 def test_vgpdata_from_numpy_equals_to_device():
     jdata, _, tdata, _, _, _ = _both()
     rebuilt = tproblem.vgpdata_from_numpy(
-        [np.asarray(a) for a in jax.tree.leaves(jdata)]
+        [np.asarray(a) for a in jax.tree.leaves(jdata)], device="cpu"
     )
     for a, b in zip(tproblem.tree_flatten(rebuilt),
                     tproblem.tree_flatten(tdata)):
@@ -50,7 +50,8 @@ def test_vgpdata_from_numpy_equals_to_device():
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         tproblem.vgpdata_from_numpy(
-            [np.asarray(a) for a in jax.tree.leaves(jdata)] + [np.zeros(1)]
+            [np.asarray(a) for a in jax.tree.leaves(jdata)] + [np.zeros(1)],
+            device="cpu",
         )
 
 

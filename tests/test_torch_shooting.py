@@ -81,7 +81,7 @@ def test_walk_rollout_collision_and_score_match():
 
 def test_pulled_controls_stay_in_box():
     _, tdata, _ = _setup()
-    g = torch.Generator().manual_seed(3)
+    g = torch.Generator(device="cpu").manual_seed(3)
     cand = torch.rand((4, KW["nsteps"], 8, 2), generator=g)
     jit = torch.randn((4, KW["nsteps"], 8), generator=g)
     U = tshoot._pulled_controls(tdyn.unicycle, tdata, cand, jit)
@@ -96,7 +96,8 @@ def test_plan_guess_is_collision_free_and_in_bounds():
     batch = dataclasses.replace(
         batch, x0=batch.x0 + torch.tensor([[0.0, 0, 0], [0.3, -0.2, 0],
                                            [-0.2, 0.4, 0]]))
-    z = tshoot.plan_guess(tnlp, batch, 256, torch.Generator().manual_seed(0),
+    z = tshoot.plan_guess(tnlp, batch, 256,
+                          torch.Generator(device="cpu").manual_seed(0),
                           pulled=8)
     K, w = tnlp.dims.nodes, tnlp.dims.node_width
     assert z.shape == (3, K * w)

@@ -41,7 +41,7 @@ def _setup(B=B, seed=0):
     jb = dataclasses.replace(jb, x0=jnp.asarray(off[0]),
                              xf=jb.xf + jnp.asarray(off[1]))
     tb = tproblem.vgpdata_from_numpy(
-        [np.asarray(a) for a in jax.tree.leaves(jb)]
+        [np.asarray(a) for a in jax.tree.leaves(jb)], device="cpu"
     )
     return jnlp, jb, tnlp, tb
 
