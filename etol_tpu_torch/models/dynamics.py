@@ -19,9 +19,50 @@ def double_integrator(x, u, t, data):
     return torch.cat([x[2:4], u[:2]])
 
 
+def point_mass_3d(x, u, t, data):
+    """3D point mass, velocity-controlled: x = [px, py, pz], u = velocity."""
+    return u[:3]
+
+
 def unicycle(x, u, t, data):
     """2D UAS kinematics with bounded speed/turn rate (BASELINE.json
     config 2): x = [px, py, heading], u = [speed, turn_rate]."""
     return torch.stack(
         [u[0] * torch.cos(x[2]), u[0] * torch.sin(x[2]), u[1]]
+    )
+
+
+def fixed_wing_3dof(x, u, t, data):
+    """Nonlinear 3-DOF fixed-wing point mass.
+
+    States x = [px, py, h, V, gamma, psi] (position, altitude, airspeed,
+    flight-path angle, heading) in KILOMETER units (km and km/s keep
+    every state O(1), so float32 collocation defects sit far above the
+    rounding floor); controls u = [load_factor, bank, throttle].
+
+        px'    = V cos(gamma) cos(psi)
+        py'    = V cos(gamma) sin(psi)
+        h'     = V sin(gamma)
+        V'     = g (throttle - sin(gamma)) - k_d V^2
+        gamma' = (g / V) (n cos(phi) - cos(gamma))
+        psi'   = g n sin(phi) / (V cos(gamma))
+
+    with g = 9.81e-3 km/s^2, drag k_d = 10 /km, and V kept away from
+    zero by the state lower bound (set V_lb > 0 in the VGP).
+    """
+    g = 9.81e-3
+    k_d = 10.0
+    V = torch.clamp(x[3], min=1e-4)
+    gamma, psi = x[4], x[5]
+    n, phi, thr = u[0], u[1], u[2]
+    cg = torch.cos(gamma)
+    return torch.stack(
+        [
+            V * cg * torch.cos(psi),
+            V * cg * torch.sin(psi),
+            V * torch.sin(gamma),
+            g * (thr - torch.sin(gamma)) - k_d * V * V,
+            (g / V) * (n * torch.cos(phi) - cg),
+            g * n * torch.sin(phi) / (V * cg),
+        ]
     )

@@ -1,11 +1,14 @@
 """Canonical VGP builders as ``(VGP, NLP)`` factories.
 
-Counterpart of ``uas_2d`` in ``etol_tpu/models/problems.py``; call
+Counterparts of the scaling-ladder factories of
+``etol_tpu/models/problems.py`` (``double_integrator_2d``, ``uas_2d``,
+``point_mass_3d``, ``fixed_wing_3dof``); call
 ``vgp.to_device(device=...)`` and hand both to
 :func:`etol_tpu_torch.solve.al_sqp.solve_batched_staged`.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -29,6 +32,35 @@ def _box_obstacles(
             ]
         )
     return out
+
+
+def double_integrator_2d(
+    nsteps: int = 20,
+    dt: float = 0.25,
+    x0=(0.0, 0.0, 0.0, 0.0),
+    xf=(5.0, 4.0, 0.0, 0.0),
+    obstacle_centers: Sequence[Sequence[float]] = ((2.5, 2.0),),
+    obstacle_half: float = 0.6,
+):
+    """BASELINE config 1 analog: 2D point mass (double integrator), one or
+    more static square obstacles."""
+    vgp = VGP(nsteps=nsteps, dt=dt)
+    vgp.x0 = list(x0)
+    vgp.xf = list(xf)
+    vgp.xtol = [0.05, 0.05, 0.1, 0.1]
+    vgp.xlower = [-10.0, -10.0, -3.0, -3.0]
+    vgp.xupper = [10.0, 10.0, 3.0, 3.0]
+    vgp.ulower = [-2.0, -2.0]
+    vgp.uupper = [2.0, 2.0]
+    for poly in _box_obstacles(obstacle_centers, obstacle_half):
+        vgp.add_exclusion_zone(poly)
+    nlp = NLP(
+        dims=vgp.dims(),
+        dynamics=dynamics.double_integrator,
+        running_cost=lambda x, u, t, d: u[0] ** 2 + u[1] ** 2,
+        scheme="hermite_simpson",
+    )
+    return vgp, nlp
 
 
 def uas_2d(
@@ -86,5 +118,68 @@ def uas_2d(
         running_cost=lambda x, u, t, d: u[0] ** 2 + 0.5 * u[1] ** 2,
         scheme="hermite_simpson",
         guess=guess,
+    )
+    return vgp, nlp
+
+
+def point_mass_3d(
+    nsteps: int = 32,
+    dt: float = 0.25,
+    x0=(0.0, 0.0, 1.0),
+    xf=(6.0, 5.0, 2.0),
+    track_specs: Sequence = (
+        # (radius, times, waypoints): true 3-D moving spheres
+        (0.6, (0.0, 8.0), ((3.0, 2.0, 1.5), (3.0, 4.0, 1.5))),
+        (0.6, (0.0, 8.0), ((2.0, 4.0, 2.0), (4.0, 2.0, 1.0))),
+    ),
+):
+    """BASELINE config 3: 3D point mass with moving spherical obstacles
+    (3 datums per waypoint: a moving ball in x, y, z)."""
+    vgp = VGP(nsteps=nsteps, dt=dt)
+    vgp.x0 = list(x0)
+    vgp.xf = list(xf)
+    vgp.xtol = [0.05, 0.05, 0.05]
+    vgp.xlower = [-10.0, -10.0, 0.0]
+    vgp.xupper = [10.0, 10.0, 5.0]
+    vgp.ulower = [-2.0, -2.0, -1.0]
+    vgp.uupper = [2.0, 2.0, 1.0]
+    for radius, times, pts in track_specs:
+        vgp.add_track(radius, times, pts)
+    nlp = NLP(
+        dims=vgp.dims(),
+        dynamics=dynamics.point_mass_3d,
+        running_cost=lambda x, u, t, d: u[0] ** 2 + u[1] ** 2 + u[2] ** 2,
+        scheme="trapezoidal",
+    )
+    return vgp, nlp
+
+
+def fixed_wing_3dof(
+    nsteps: int = 100,
+    dt: float = 0.5,
+    x0=(0.0, 0.0, 0.100, 0.020, 0.0, 0.0),
+    xf=(0.800, 0.600, 0.150, 0.020, 0.0, 0.8),
+):
+    """BASELINE config 4: nonlinear fixed-wing point mass, N=100, no
+    obstacles. Km units (see dynamics.fixed_wing_3dof): the 800 m
+    cross-range climb becomes 0.8 km. The registry runs it under the
+    radau scheme (``models/tuned.py``)."""
+    vgp = VGP(nsteps=nsteps, dt=dt)
+    vgp.x0 = list(x0)
+    vgp.xf = list(xf)
+    vgp.xtol = [0.005, 0.005, 0.005, 0.002, 0.2, 0.2]
+    vgp.xlower = [-5.0, -5.0, 0.020, 0.010, -0.5, -math.pi]
+    vgp.xupper = [5.0, 5.0, 0.500, 0.040, 0.5, math.pi]
+    vgp.ulower = [0.5, -1.0, 0.0]   # load factor, bank, throttle
+    vgp.uupper = [3.0, 1.0, 1.0]
+    nlp = NLP(
+        dims=vgp.dims(),
+        dynamics=dynamics.fixed_wing_3dof,
+        # effort + mild throttle cost, normalized per-state magnitudes
+        running_cost=lambda x, u, t, d: (
+            (u[0] - 1.0) ** 2 + u[1] ** 2 + 0.1 * u[2] ** 2
+        ),
+        scheme="hermite_simpson",
+        use_obstacles=False,
     )
     return vgp, nlp

@@ -1,4 +1,5 @@
-"""Measured per-model solver configurations (the ``uas_2d`` entries).
+"""Measured per-model solver configurations (the scaling ladder's four
+models).
 
 Counterpart of ``etol_tpu/models/tuned.py``. The numbers are the JAX
 package's registry, swept there against its batched iteration CDF; the
@@ -19,11 +20,29 @@ from ..solve.al_sqp import SolverConfig
 # name -> (SolverConfig overrides, compaction stages as (divisor,
 # budget) pairs: capacity = B // divisor)
 _TUNED = {
+    "double_integrator_2d": (
+        dict(max_outer=64, rho0=3160.0, rho_growth=5.6,
+             round_viol_patience=4, max_total=20, ls_grid=16),
+        ((4, 10), (32, 256)),
+    ),
     "uas_2d": (
         dict(max_outer=64, max_inner=100, rho0=3160.0,
              rho_growth=5.6, round_viol_patience=4,
              max_total=33, ls_grid=16),
         ((2, 16), (8, 32), (32, 96)),
+    ),
+    # trapezoidal: takes the separable assembly (cfg.sep_assembly)
+    "point_mass_3d": (
+        dict(max_outer=64, rho0=3160.0, rho_growth=5.6,
+             round_viol_patience=4, max_total=42, ls_grid=16),
+        ((2, 16), (8, 32), (32, 96)),
+    ),
+    # radau scheme (see _MODEL_EXTRAS) + two chord steps per assembly:
+    # obstacle-free, so stale blocks stay valid without active-set churn
+    "fixed_wing_3dof": (
+        dict(max_outer=64, rho0=316.0, round_viol_patience=8,
+             max_total=124, chord_steps=2, ls_grid=16),
+        ((2, 18), (8, 64), (32, 256)),
     ),
 }
 
@@ -34,6 +53,8 @@ WARM_UAS_2D = (dict(max_total=7), ((8, 24), (32, 96)))
 _MODEL_EXTRAS = {
     "uas_2d": dict(obstacle_form="pieces", seed_walks=256,
                    seed_pulled=16),
+    "double_integrator_2d": dict(obstacle_form="pieces"),
+    "fixed_wing_3dof": dict(scheme="radau"),
 }
 
 
@@ -58,8 +79,9 @@ def tuned_config(
 
     ``batch`` resolves the stage divisors into absolute lane counts
     (None keeps the raw (divisor, budget) pairs). ``kkt_solver`` is
-    "kernel" (the CUDA kernel on a card, its plain version on the CPU)
-    or "scan" (the plain torch block Cholesky everywhere)."""
+    "kernel" (the CUDA kernel on a card, its plain version on the CPU),
+    "scan" (the plain torch block Cholesky everywhere) or "cr" (cyclic
+    reduction everywhere)."""
     if model not in _TUNED:
         raise KeyError(
             f"no tuned config for {model!r}; known: {sorted(_TUNED)}"

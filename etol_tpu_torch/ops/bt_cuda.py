@@ -10,7 +10,9 @@ name keyed by a hash of the source and flags, and loaded with ctypes.
 returns x [B, K, w] with H x = r, after one refinement pass against the
 stored factor. On a CPU tensor it computes the plain version
 (:func:`etol_tpu_torch.solve.btridiag.solve_refined`); on a CUDA tensor
-it launches the kernel or raises — there is no fallback.
+it launches the kernel or raises — there is no fallback. Node widths
+above 9 are an error here; the solver routes them to cyclic reduction
+from the width alone (``solve/al_sqp.py``), before any launch.
 
 The source holds two kernels and :func:`plan` chooses between them from
 (K, w) alone: the shared-memory kernel (a lane split across w threads of
@@ -36,7 +38,7 @@ from ..solve import btridiag
 #: kernel launches made by :func:`solve` in this process; a run reads it
 #: to show that its KKT solves went through the kernel
 LAUNCHES = 0
-#: the same launches by (variant, batch size)
+#: the same launches by (variant, K, w, batch size)
 LAUNCHES_BY = {}
 
 MAX_W = 9
@@ -195,9 +197,9 @@ def _check(D, O, r):
                          f"got {tuple(r.shape)}")
     if not 1 <= w <= MAX_W:
         raise ValueError(
-            f"node width w={w} is outside the kernel's 1..{MAX_W}; the JAX "
-            "package solves wider nodes by cyclic reduction, which is not "
-            "ported yet"
+            f"node width w={w} is outside the kernel's 1..{MAX_W}; wider "
+            "nodes are solved by cyclic reduction (ops.cyclic_reduction), "
+            "which the solver picks from the width before it gets here"
         )
     if K < 1:
         raise ValueError("K must be at least 1")
@@ -232,7 +234,7 @@ def solve(D, O, r, variant: str | None = None):
     if rc != 0:
         raise RuntimeError(f"bt_solve kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
-    key = (pl.variant, B)
+    key = (pl.variant, K, w, B)
     LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + 1
     return x
 

@@ -15,8 +15,18 @@ The loop. A Python ``while`` runs while any lane's own loop condition
 holds, and every state tensor is updated as ``torch.where(active, new,
 old)``, so a lane stops changing exactly where its own JAX
 ``while_loop`` would stop (``inner_iters`` and the stage trip counts
-depend on this). Testing ``active.any()`` syncs the host once per
-iteration.
+depend on this). One trip is a full Newton step and then
+``cfg.chord_steps`` reuse steps against the stored KKT blocks; the
+freeze wraps the whole trip. Testing ``active.any()`` syncs the host
+once per trip.
+
+The KKT solve. ``kkt_solver="kernel"`` launches the CUDA kernel
+(:mod:`..ops.bt_cuda`) from the batched entry points for node widths up
+to 9; nodes wider than that, and the unbatched :func:`solve`, take
+cyclic reduction (:mod:`..ops.cyclic_reduction`), as in the JAX
+package. Both routes are chosen from the shape and the entry point
+before anything is launched: a kernel that fails to build or launch
+raises. ``"scan"`` and ``"cr"`` name one path for every shape.
 
 Precision. Float32 throughout, with reduced-precision matmul modes off:
 the reference pins ``Precision.HIGHEST`` because reduced-precision
@@ -37,7 +47,7 @@ torch.set_float32_matmul_precision("highest")
 
 from ..core.problem import VGPData, map_lanes, tree_map
 from ..core.types import Status
-from ..ops import bt_cuda
+from ..ops import bt_cuda, cyclic_reduction
 from ..transcribe.nlp import NLP
 from . import btridiag
 
@@ -49,13 +59,12 @@ _LS_EXPONENTS = tuple(range(24))
 class SolverConfig:
     """Solver knobs; the defaults and meanings are the JAX package's
     (see ``etol_tpu.solve.al_sqp.SolverConfig`` for the measurements
-    behind each). Its knobs that no main-path caller sets to anything
-    but the one value ported here are not fields: the Hessian is
+    behind each). Its knobs that no registry entry sets to anything but
+    the one value ported here are not fields: the Hessian is
     ``hessian="defect"`` (exact dynamics curvature (λ+ρc)·∇²c), the
-    Levenberg rule is ``lm_rule="ratio"``, and ``sep_assembly``,
-    ``chord_steps``, ``ls_eta``, ``ls_rule``, ``dual_relax``,
-    ``ls_deep_round``, ``ls_exponents`` and ``ls_backtracks`` do not
-    exist (asking for them is a TypeError)."""
+    Levenberg rule is ``lm_rule="ratio"``, and ``ls_eta``, ``ls_rule``,
+    ``dual_relax``, ``ls_deep_round``, ``ls_exponents`` and
+    ``ls_backtracks`` do not exist (asking for them is a TypeError)."""
 
     max_outer: int = 20
     max_inner: int = 50
@@ -77,17 +86,34 @@ class SolverConfig:
     stall_tol: float = 1e-7     # relative AL-decrease floor
     kkt_solver: str = "kernel"  # "kernel": ops.bt_cuda (the CUDA kernel
                                 # on a card, its plain version on the
-                                # CPU); "scan": the plain torch block
-                                # Cholesky everywhere
+                                # CPU) for node widths up to the
+                                # kernel's 9, cyclic reduction for wider
+                                # nodes and in the unbatched solve();
+                                # "scan": the plain torch block Cholesky
+                                # everywhere; "cr": cyclic reduction
+                                # everywhere
     round_viol_patience: int = 8
     round_viol_factor: float = 0.9
+    sep_assembly: bool = True   # euler/trapezoidal: one dynamics
+                                # Jacobian and one w-dim curvature
+                                # Hessian per NODE serve both adjacent
+                                # steps (the cross-node quadrant is
+                                # exactly zero); False = the generic
+                                # node-pair path, the same math
+    chord_steps: int = 0        # after each full Newton step, this many
+                                # reuse steps that re-solve the stored
+                                # KKT blocks with a fresh gradient (no
+                                # assembly); each counts as an iteration
 
     def __post_init__(self):
-        if self.kkt_solver not in ("kernel", "scan"):
+        if self.kkt_solver not in ("kernel", "scan", "cr"):
             raise ValueError(
-                f"kkt_solver must be 'kernel' or 'scan', got "
+                f"kkt_solver must be 'kernel', 'scan' or 'cr', got "
                 f"{self.kkt_solver!r}"
             )
+        if self.chord_steps < 0:
+            raise ValueError(
+                f"chord_steps must be >= 0, got {self.chord_steps}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +152,15 @@ def _amax0(a):
     return torch.clamp(torch.amax(a, dim=(-2, -1)), min=0.0)
 
 
+def _jacfwd(fn):
+    """``torch.func.jacfwd`` with the Jacobian in its argument's dtype.
+    Forward mode promotes a Python scalar times a 0-dim element of the
+    argument (``10.0 * x[3]``, the style dynamics are written in) to
+    float64; the solver's blocks stay float32, as the JAX package's
+    do."""
+    return lambda x: jacfwd(fn)(x).to(x.dtype)
+
+
 def _sel(mask, new, old):
     """torch.where with a [B] lane mask over [B, ...] tensors."""
     return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)),
@@ -143,6 +178,12 @@ class _ALFuncs:
         self.nlp, self.cfg, self.data = nlp, cfg, data
         d = nlp.dims
         self.K, self.w = d.nodes, d.node_width
+        # the KKT route, from the config and the node width alone: the
+        # kernel takes widths up to MAX_W, wider nodes go to cyclic
+        # reduction (as the JAX package's vmap rule does)
+        self.kkt = cfg.kkt_solver
+        if self.kkt == "kernel" and self.w > bt_cuda.MAX_W:
+            self.kkt = "cr"
         self.dtype = data.x0.dtype
         dev = data.x0.device
         self.ks_step = torch.arange(d.nsteps, device=dev)
@@ -242,7 +283,8 @@ class _ALFuncs:
 
     def gn_blocks(self, Z, lam_def, lam_eq, mu, rho, free, lm, g):
         """AL Hessian blocks (D [B,K,w,w], O [B,K-1,w,w]) in scaled
-        coordinates: Gauss-Newton + the exact defect curvature (the
+        coordinates: Gauss-Newton + the exact defect curvature (per
+        node for euler/trapezoidal under ``cfg.sep_assembly``, else the
         generic node-pair path), active-set masking and Levenberg
         damping. ``g`` carries the inequality residuals at Z."""
         return self._lanes(
@@ -264,12 +306,12 @@ class _ALFuncs:
             H = hessian(lambda v: nlp.node_cost(v, k, data))(zn)
             De = torch.zeros_like(H)
             if nlp.path_eq:
-                Ge = jacfwd(lambda v: nlp.node_eq(v, k, data))(zn)
+                Ge = _jacfwd(lambda v: nlp.node_eq(v, k, data))(zn)
                 De = De + Ge.T @ Ge
             act = (mu_k + rho * g_k > 0).to(dtype)
             if m_obs:
                 x = zn[: d.nx]
-                Go = jacfwd(
+                Go = _jacfwd(
                     lambda v: nlp.node_ineq_obs(
                         torch.cat([v, x[pd:]]), k, tc_k, data
                     )
@@ -277,17 +319,41 @@ class _ALFuncs:
                 Goa = Go * act[:m_obs, None]
                 De = De + tnf.pad(Goa.T @ Go, (0, w - pd, 0, w - pd))
             if nlp.path_ineq:
-                Gu = jacfwd(lambda v: nlp.node_ineq_user(v, k, data))(zn)
+                Gu = _jacfwd(lambda v: nlp.node_ineq_user(v, k, data))(zn)
                 De = De + (Gu * act[m_obs:, None]).T @ Gu
             return H + rho * De
 
         D = vmap(node_blocks)(Z, self.ks_node, mu, lam_eq, tc, g)
 
-        # step coupling: defect Jacobians A_k = dc/dz_k, B_k = dc/dz_{k+1}
+        if cfg.sep_assembly and nlp.scheme in ("euler", "trapezoidal"):
+            Dc, O = self._sep_coupling(data, cscale, Z, lam_def, rho)
+        else:
+            Dc, O = self._pair_coupling(data, cscale, Z, lam_def, rho)
+        D = D + Dc
+
+        # relative-variable coordinates: H~ = S H S
+        D = D * (scale[:, :, None] * scale[:, None, :])
+        O = O * (scale[:-1][:, :, None] * scale[1:][:, None, :])
+        # active-set masking: fixed rows/cols become identity
+        m = free.to(dtype)
+        D = D * (m[:, :, None] * m[:, None, :])
+        D = D + eye * (1.0 - m)[:, None, :]
+        O = O * (m[:-1][:, :, None] * m[1:][:, None, :])
+        # damping keeps the factor SPD (f32) and globalizes Newton
+        D = D + ((cfg.reg + lm) * (1.0 + rho)) * eye
+        return D, O
+
+    def _pair_coupling(self, data, cscale, Z, lam_def, rho):
+        """Step coupling on the generic node-pair path: what the steps
+        add to the diagonal blocks [K, w, w], and the off-diagonal
+        blocks O [K-1, w, w]."""
+        nlp, w = self.nlp, self.w
+
+        # defect Jacobians A_k = dc/dz_k, B_k = dc/dz_{k+1}
         def step_jacs(a, b, k):
             cs = cscale[:, None]
-            A = jacfwd(lambda v: nlp.step_defect(v, b, k, data))(a) / cs
-            Bk = jacfwd(lambda v: nlp.step_defect(a, v, k, data))(b) / cs
+            A = _jacfwd(lambda v: nlp.step_defect(v, b, k, data))(a) / cs
+            Bk = _jacfwd(lambda v: nlp.step_defect(a, v, k, data))(b) / cs
             return A, Bk
 
         A, Bj = vmap(step_jacs)(Z[:-1], Z[1:], self.ks_step)
@@ -303,23 +369,61 @@ class _ALFuncs:
             return Hp[:w, :w], Hp[w:, w:], Hp[:w, w:]
 
         Haa, Hbb, Hab = vmap(pair_curv)(Z[:-1], Z[1:], self.ks_step, lam_def)
+        return self._gn_coupling(A, Bj, rho, Haa, Hbb, Hab)
+
+    @staticmethod
+    def _gn_coupling(A, Bj, rho, Haa=0.0, Hbb=0.0, Hab=0.0):
+        """rho AᵀA (+Haa) lands on D_k, rho BᵀB (+Hbb) on D_{k+1},
+        rho AᵀB (+Hab) is O_k."""
         first = rho * torch.einsum("kij,kil->kjl", A, A) + Haa
         second = rho * torch.einsum("kij,kil->kjl", Bj, Bj) + Hbb
-        D = (D + tnf.pad(first, (0, 0, 0, 0, 0, 1))
-             + tnf.pad(second, (0, 0, 0, 0, 1, 0)))
-        O = rho * torch.einsum("kij,kil->kjl", A, Bj) + Hab
+        Dc = (tnf.pad(first, (0, 0, 0, 0, 0, 1))
+              + tnf.pad(second, (0, 0, 0, 0, 1, 0)))
+        return Dc, rho * torch.einsum("kij,kil->kjl", A, Bj) + Hab
 
-        # relative-variable coordinates: H~ = S H S
-        D = D * (scale[:, :, None] * scale[:, None, :])
-        O = O * (scale[:-1][:, :, None] * scale[1:][:, None, :])
-        # active-set masking: fixed rows/cols become identity
-        m = free.to(dtype)
-        D = D * (m[:, :, None] * m[:, None, :])
-        D = D + eye * (1.0 - m)[:, None, :]
-        O = O * (m[:-1][:, :, None] * m[1:][:, None, :])
-        # damping keeps the factor SPD (f32) and globalizes Newton
-        D = D + ((cfg.reg + lm) * (1.0 + rho)) * eye
-        return D, O
+    def _sep_coupling(self, data, cscale, Z, lam_def, rho):
+        """Step coupling for the separable schemes (euler, trapezoidal):
+        the defect of step k reads f(z_k) and f(z_{k+1}) separately, so
+        one dynamics Jacobian per node serves both adjacent steps, and
+        the curvature of (λ+ρc)·c is one w-dim Hessian per node, weighted
+        by both adjacent steps, with a zero cross-node quadrant. Same
+        returns as :meth:`_pair_coupling`."""
+        nlp, w = self.nlp, self.w
+        nx = nlp.dims.nx
+        dt, cs = data.dt, cscale
+
+        def fnode(zn, k):
+            x, u = nlp._split(zn)
+            return nlp.dynamics(x, u, k.to(zn.dtype) * dt, data)
+
+        fvals = vmap(fnode)(Z, self.ks_node)
+        Jn = vmap(lambda zn, k: _jacfwd(lambda v: fnode(v, k))(zn))(
+            Z, self.ks_node)                              # [K, nx, w]
+        Js = Jn / cs[None, :, None]
+        Ecs = tnf.pad(torch.eye(nx, dtype=Z.dtype, device=Z.device),
+                      (0, w - nx)) / cs[:, None]
+        X0 = Z[:, :nx]
+        if nlp.scheme == "euler":
+            # c = x1 - x0 - dt f(z1): A constant, curvature b-only
+            A = (-Ecs).expand(self.K - 1, nx, w)
+            Bj = Ecs - dt * Js[1:]
+            cdef = X0[1:] - X0[:-1] - dt * fvals[1:]
+            coef = -dt
+        else:  # trapezoidal: c = x1 - x0 - dt/2 (f(z0) + f(z1))
+            A = -Ecs - (0.5 * dt) * Js[:-1]
+            Bj = Ecs - (0.5 * dt) * Js[1:]
+            cdef = X0[1:] - X0[:-1] - (0.5 * dt) * (fvals[:-1] + fvals[1:])
+            coef = -0.5 * dt
+        s_eff = (lam_def + rho * (cdef / cs)) / cs         # [K-1, nx]
+        wn = tnf.pad(s_eff, (0, 0, 1, 0))
+        if nlp.scheme == "trapezoidal":
+            wn = wn + tnf.pad(s_eff, (0, 0, 0, 1))
+        Hn = coef * vmap(
+            lambda zn, k, wk: hessian(
+                lambda v: torch.sum(wk * fnode(v, k)))(zn)
+        )(Z, self.ks_node, wn)                            # [K, w, w]
+        Dc, O = self._gn_coupling(A, Bj, rho)
+        return Dc + Hn, O
 
     def proj_grad_norm(self, Z, grad_):
         """Scaled projected-gradient inf-norm per lane."""
@@ -354,8 +458,10 @@ class _ALFuncs:
         s = self.scale
         rhs = torch.where(free, -(s * grad_), torch.zeros_like(grad_))
         D, O, rhs = D.contiguous(), O.contiguous(), rhs.contiguous()
-        if self.cfg.kkt_solver == "kernel":
+        if self.kkt == "kernel":
             pt = bt_cuda.solve(D, O, rhs)
+        elif self.kkt == "cr":
+            pt = cyclic_reduction.solve_refined(D, O, rhs)
         else:
             pt = btridiag.solve_refined(D, O, rhs)
         p = torch.where(free, s * pt, torch.zeros_like(pt))
@@ -365,17 +471,35 @@ class _ALFuncs:
         step = s * rhs / ((1.0 + rho) * (1.0 + lm))[:, None, None]
         return _sel(bad, step, p), bad
 
+    def chord_direction(self, Dst, Ost, free_st, dmp_st, grad_, rho, lm):
+        """Direction from STORED blocks with the damping diagonal
+        re-centred on the current (rho, lm): D_eff = Dst + (dmp_now -
+        dmp_st) I, exact for the damping term; what else is stale (moved
+        Z, updated multipliers, grown rho inside the blocks) the Armijo
+        line search absorbs."""
+        dmp_now = (self.cfg.reg + lm) * (1.0 + rho)
+        eye = torch.eye(self.w, dtype=self.dtype, device=Dst.device)
+        D_eff = Dst + (dmp_now - dmp_st)[:, None, None, None] * eye
+        return self.direction_from_blocks(
+            D_eff, Ost, free_st, grad_, rho, lm)
+
 
 _STATE = (
     "Z", "cd", "ce", "g", "cost", "lam_def", "lam_eq", "mu", "rho",
     "omega", "lm", "viol_prev", "viol_ref", "noprog", "in_it", "o_it",
     "tot", "done", "pgn",
 )
+# the stored KKT blocks of the chord steps (state only when
+# cfg.chord_steps > 0): D, O, the free mask and the damping they hold
+_CHORD_STATE = ("Dst", "Ost", "free_st", "dmp_st")
 
 
-def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps) -> dict:
+def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
+          reuse: bool = False) -> dict:
     """One flattened AL-SQP iteration for every lane (the JAX package's
-    ``body_diag`` with the main-path options)."""
+    ``body_diag`` with the registry's options). ``reuse`` makes it a
+    chord step: the direction comes from the stored blocks in ``st``
+    with a fresh gradient, and nothing is assembled."""
     Z, cd, ce, g, cost = st["Z"], st["cd"], st["ce"], st["g"], st["cost"]
     lam_def, lam_eq, mu, rho = (st["lam_def"], st["lam_eq"], st["mu"],
                                 st["rho"])
@@ -414,7 +538,18 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps) -> dict:
     done = done | done_now
 
     # ---- Newton step for lanes still inside an inner round
-    p, bad_dir = F.direction(Z, grad_, lam_def, lam_eq, mu, rho, lm, g)
+    chord = {k: st[k] for k in _CHORD_STATE if k in st}
+    if reuse:
+        p, bad_dir = F.chord_direction(
+            st["Dst"], st["Ost"], st["free_st"], st["dmp_st"], grad_, rho,
+            lm)
+    elif cfg.chord_steps:
+        p, bad_dir, Dst, Ost, free_st = F.direction_ext(
+            Z, grad_, lam_def, lam_eq, mu, rho, lm, g)
+        chord = dict(Dst=Dst, Ost=Ost, free_st=free_st,
+                     dmp_st=(cfg.reg + lm) * (1.0 + rho))
+    else:
+        p, bad_dir = F.direction(Z, grad_, lam_def, lam_eq, mu, rho, lm, g)
 
     # parallel Armijo line search over the alpha grid, one batched
     # residual pass for all candidates
@@ -496,7 +631,7 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps) -> dict:
         Z=Znew, cd=cd_n, ce=ce_n, g=g_n, cost=cost_n, lam_def=lam_def,
         lam_eq=lam_eq, mu=mu, rho=rho, omega=omega, lm=lm,
         viol_prev=viol_prev, viol_ref=viol_ref, noprog=noprog, in_it=in_it,
-        o_it=o_it, tot=st["tot"] + 1, done=done, pgn=pgn,
+        o_it=o_it, tot=st["tot"] + 1, done=done, pgn=pgn, **chord,
     )
 
 
@@ -530,15 +665,30 @@ def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
         o_it=full(0, torch.int32), tot=full(0, torch.int32),
         done=full(False, torch.bool), pgn=full(inf),
     )
+    if cfg.chord_steps:
+        st.update(
+            Dst=Z0.new_zeros((B, F.K, F.w, F.w)),
+            Ost=Z0.new_zeros((B, F.K - 1, F.w, F.w)),
+            free_st=torch.zeros((B, F.K, F.w), dtype=torch.bool,
+                                device=dev),
+            dmp_st=full(0.0),
+        )
 
     def cond(s):
         return ((~s["done"]) & (s["o_it"] < cfg.max_outer)
                 & (s["tot"] < max_total))
 
+    # One trip is the composite iteration: a full step, then the chord
+    # steps. A lane's condition is tested once per trip, as the JAX
+    # while_loop tests it, so the freeze wraps the composite: a lane
+    # runs its chord steps even where ``tot`` passes ``max_total``
+    # inside one, and each sub-step counts in ``tot``.
     active = cond(st)
-    while bool(active.any()):  # one host sync per iteration
+    while bool(active.any()):  # one host sync per trip
         new = _body(F, cfg, st, exps)
-        st = {k: _sel(active, new[k], st[k]) for k in _STATE}
+        for _ in range(cfg.chord_steps):
+            new = _body(F, cfg, new, exps, reuse=True)
+        st = {k: _sel(active, new[k], st[k]) for k in st}
         active = cond(st)
 
     cd, ce, g, Z = st["cd"], st["ce"], st["g"], st["Z"]
@@ -567,6 +717,39 @@ def init_multipliers(nlp: NLP, data: VGPData):
     z = data.x0.new_zeros
     return (z((B, d.nsteps, d.nx)), z((B, d.nodes, m_eq)),
             z((B, d.nodes, m_in)))
+
+
+def solve(
+    nlp: NLP,
+    cfg: SolverConfig,
+    data: VGPData,
+    z0: Optional[torch.Tensor] = None,
+    lam0=None,
+    rho0: Optional[torch.Tensor] = None,
+) -> SolveResult:
+    """Solve ONE problem: ``data`` without a lane axis, the result
+    without one. ``z0`` [nz], ``lam0`` and ``rho0`` (a scalar) warm-start
+    it (the MPC re-solve: pass the previous result's z, multipliers and
+    penalty).
+
+    The KKT route: under ``kkt_solver="kernel"`` this unbatched solve
+    takes cyclic reduction, as the JAX package's does (there the kernel
+    is reached only through ``vmap``); ``"scan"`` and ``"cr"`` mean what
+    they say. Inside, it is a batch of one."""
+    if cfg.kkt_solver == "kernel":
+        cfg = dataclasses.replace(cfg, kkt_solver="cr")
+
+    def lane(a):
+        return a[None]
+
+    if lam0 is not None:
+        lam0 = tuple(lane(a) for a in lam0)
+    res = solve_batched(
+        nlp, cfg, tree_map(lane, data),
+        None if z0 is None else lane(z0), lam0,
+        None if rho0 is None else torch.as_tensor(rho0).reshape(1),
+    )
+    return tree_map(lambda a: a[0], res)
 
 
 def solve_batched(

@@ -14,7 +14,8 @@ the same controls. The draws do not reproduce ``jax.random``'s.
 :func:`plan` and :func:`plan_guess` take a batch of problems (lane axis
 first) and draw ONE set of unit draws that every lane scales by its own
 bounds — as the JAX bench's per-lane ``plan_guess(..., key=None)`` uses
-one key for every lane.
+one key for every lane (``tests/test_torch_shooting.py`` hands
+:func:`plan_from_units` the reference's own draws and gets its seeds).
 """
 from __future__ import annotations
 
@@ -137,6 +138,54 @@ def _score_rollouts(dynamics: Callable, data: VGPData, U,
     return vmap(eval_one)(U)
 
 
+def draw_units(n_samples: int, nsteps: int, nu: int, pulled: int,
+               n_cand: int, generator: torch.Generator, device, dtype):
+    """The unit draws of one :func:`plan` call, shared by every lane:
+    (base_u [S, 1, nu], step_u [S, N, nu], cand_u [P, N, C, nu] or None,
+    jitter [P, N, C] or None) — uniforms in [0, 1) and, for the jitter,
+    standard normals."""
+    def draw(*shape, normal=False):
+        f = torch.randn if normal else torch.rand
+        return f(shape, generator=generator, device=device, dtype=dtype)
+
+    base_u = draw(n_samples, 1, nu)
+    step_u = draw(n_samples, nsteps, nu)
+    if not pulled:
+        return base_u, step_u, None, None
+    cand_u = draw(pulled, nsteps, n_cand, nu)
+    jitter = draw(pulled, nsteps, n_cand, normal=True)
+    return base_u, step_u, cand_u, jitter
+
+
+def plan_from_units(dynamics: Callable, data: VGPData, base_u, step_u,
+                    cand_u=None, jitter=None, goal_weight: float = 10.0,
+                    effort_weight: float = 0.1):
+    """The deterministic part of :func:`plan`: every lane of ``data``
+    scales the same unit draws by its own bounds, rolls them out and keeps
+    its best. Returns (X [B, K, nx], U_nodes [B, K, nu], info)."""
+    U = map_lanes(lambda d: _walk_controls(d, base_u, step_u), data)
+    if cand_u is not None:
+        Up = map_lanes(
+            lambda d: _pulled_controls(dynamics, d, cand_u, jitter), data
+        )
+        U = torch.cat([U, Up], dim=1)                      # [B, S, N, nu]
+    scores, Xs = map_lanes(
+        lambda d, Ul: _score_rollouts(dynamics, d, Ul, goal_weight,
+                                      effort_weight),
+        data, U,
+    )
+    best = torch.argmin(scores, dim=1)
+    lanes = torch.arange(U.shape[0], device=U.device)
+    Xb, Ub = Xs[lanes, best], U[lanes, best]
+    U_nodes = torch.cat([Ub[:, :1], Ub], dim=1)            # [B, K, nu]
+    info = dict(
+        scores=scores,
+        best=best,
+        valid_fraction=torch.mean((scores < 1e6).to(U.dtype), dim=1),
+    )
+    return Xb, U_nodes, info
+
+
 def plan(
     dynamics: Callable,
     nsteps: int,
@@ -154,39 +203,12 @@ def plan(
     U_nodes repeats the step controls onto nodes so the result packs
     into a collocation decision vector."""
     dev, dtype = data.x0.device, data.x0.dtype
-    nu = data.u_lb.shape[-1]
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-
-    def draw(*shape, normal=False):
-        f = torch.randn if normal else torch.rand
-        return f(shape, generator=generator, device=dev, dtype=dtype)
-
-    base_u = draw(n_samples, 1, nu)
-    step_u = draw(n_samples, nsteps, nu)
-    U = map_lanes(lambda d: _walk_controls(d, base_u, step_u), data)
-    if pulled:
-        cand_u = draw(pulled, nsteps, n_cand, nu)
-        jitter = draw(pulled, nsteps, n_cand, normal=True)
-        Up = map_lanes(
-            lambda d: _pulled_controls(dynamics, d, cand_u, jitter), data
-        )
-        U = torch.cat([U, Up], dim=1)                      # [B, S, N, nu]
-    scores, Xs = map_lanes(
-        lambda d, Ul: _score_rollouts(dynamics, d, Ul, goal_weight,
-                                      effort_weight),
-        data, U,
-    )
-    best = torch.argmin(scores, dim=1)
-    lanes = torch.arange(U.shape[0], device=dev)
-    Xb, Ub = Xs[lanes, best], U[lanes, best]
-    U_nodes = torch.cat([Ub[:, :1], Ub], dim=1)            # [B, K, nu]
-    info = dict(
-        scores=scores,
-        best=best,
-        valid_fraction=torch.mean((scores < 1e6).to(dtype), dim=1),
-    )
-    return Xb, U_nodes, info
+    units = draw_units(n_samples, nsteps, data.u_lb.shape[-1], pulled,
+                       n_cand, generator, dev, dtype)
+    return plan_from_units(dynamics, data, *units, goal_weight=goal_weight,
+                           effort_weight=effort_weight)
 
 
 def plan_guess(nlp: NLP, data: VGPData, n_samples: int = 4096,

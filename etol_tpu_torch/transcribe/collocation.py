@@ -9,14 +9,17 @@ Schemes:
 * ``trapezoidal``  standard trapezoid rule.
 * ``hermite_simpson``  compressed Hermite–Simpson (3rd order), midpoint
                    controls interpolated.
-
-Radau is not ported yet.
+* ``radau``        compressed Radau IIA, 2 stages / 3rd order: the
+                   quadratic through (x_k, x_{k+1}, dt·f_{k+1}) is
+                   collocated at c = 1/3; eliminating the interior stage
+                   recovers the Radau IIA tableau with one defect per
+                   step and no extra decision variables.
 """
 from __future__ import annotations
 
 from typing import Callable
 
-SCHEMES = ("euler", "trapezoidal", "hermite_simpson")
+SCHEMES = ("euler", "trapezoidal", "hermite_simpson", "radau")
 
 
 def step_defect(
@@ -40,5 +43,11 @@ def step_defect(
         fm = f(xm, um, 0.5 * (t0 + t1), data)
         return x1 - x0 - (dt / 6.0) * (f0 + 4.0 * fm + f1)
     if scheme == "radau":
-        raise NotImplementedError("the radau scheme is not ported yet")
+        # interior stage at c = 1/3; the defect is the b-row (3/4, 1/4).
+        # f0 is unused: the scheme is stiffly accurate, only stage
+        # derivatives enter.
+        xs = x0 + (5.0 * (x1 - x0) - 2.0 * dt * f1) / 9.0
+        us = (2.0 * u0 + u1) / 3.0
+        fs = f(xs, us, t0 + dt / 3.0, data)
+        return x1 - x0 - dt * (0.75 * fs + 0.25 * f1)
     raise ValueError(f"unknown scheme {scheme!r}; pick from {SCHEMES}")

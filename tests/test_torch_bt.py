@@ -88,6 +88,9 @@ def test_indefinite_block_gives_nan():
 
 
 def test_wrapper_rejects_bad_inputs():
+    # a direct call at w > 9 is an error: the solver picks cyclic
+    # reduction from the width and never gets here
+    # (tests/test_torch_cr.py holds that route)
     D, O, r = _problem(2, 4, 10)
     with pytest.raises(ValueError, match="cyclic reduction"):
         bt_cuda.solve(*_t(D, O, r))

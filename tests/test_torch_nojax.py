@@ -5,6 +5,7 @@ import ast
 import dataclasses
 import pathlib
 
+import pytest
 import torch
 
 from etol_tpu_torch import bench_harness
@@ -37,6 +38,41 @@ def test_port_imports_no_jax():
         if m.split(".")[0] in ("jax", "jaxlib", "etol_tpu")
     }
     assert not offenders, offenders
+
+
+# every module of the port; a new module is added here with its slice
+MODULES = [
+    "__init__", "bench_harness", "bench_scaling",
+    "core/__init__", "core/_native", "core/device", "core/geometry",
+    "core/problem", "core/trajectory", "core/types",
+    "models/__init__", "models/dynamics", "models/problems", "models/tuned",
+    "ops/__init__", "ops/bt_cuda", "ops/cyclic_reduction",
+    "solve/__init__", "solve/al_sqp", "solve/btridiag", "solve/shooting",
+    "transcribe/__init__", "transcribe/collocation", "transcribe/nlp",
+    "transcribe/obstacles",
+]
+
+
+def test_module_list_is_complete():
+    found = sorted(str(f.relative_to(PORT))[:-3] for f in PORT.rglob("*.py"))
+    assert found == sorted(MODULES)
+
+
+@pytest.mark.parametrize("module", MODULES + ["../chip_smoke"])
+def test_module_imports_torch_side_only(module):
+    """Per module, function-level imports included: nothing of jax or of
+    the JAX package, and no import relative to a package above the
+    port's."""
+    path = (PORT / f"{module}.py").resolve()
+    mods = list(_imported_modules(path))
+    bad = [m for m in mods
+           if m.split(".")[0] in ("jax", "jaxlib", "etol_tpu", "flax",
+                                  "optax")]
+    assert not bad, bad
+    depth = len(path.relative_to(PORT.parent).parts) - 1
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom):
+            assert node.level <= depth, (module, node.module, node.level)
 
 
 def test_cpu_main_path_runs():

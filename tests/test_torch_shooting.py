@@ -1,7 +1,9 @@
 """Port parity: shooting seeds. The deterministic parts (rollout,
 collision test, walk scoring) get the same numpy-made controls in both
 packages; the port's draws come from a torch.Generator and are not
-compared with jax.random's.
+compared with jax.random's. The batched plan is handed the reference's
+own unit draws (remade from its key splits) and must return the seeds of
+the reference's per-lane plan under one shared key.
 
 Tolerance: rtol/atol 1e-5 on rollouts and scores — the same float32
 midpoint steps, with sin/cos from two libms a few ulps apart, over 12
@@ -113,3 +115,71 @@ def test_plan_guess_is_collision_free_and_in_bounds():
         margins = vmap(lambda p: tobs.halfspace_margins(p, tdata.obstacles))(
             X[b, :, :2])
         assert float(margins.max()) <= 0.0
+
+
+def _reference_units(S, P, N, C=8, nu=2):
+    """The unit draws of the JAX ``plan(key=None)``, by its own key
+    splits: PRNGKey(0) into walks' base, walks' steps and the pulled
+    family; the pulled key per rollout, per step, into candidates and
+    jitter."""
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
+    base = jax.random.uniform(k1, (S, 1, nu))
+    steps = jax.random.uniform(k2, (S, N, nu))
+
+    def per_step(kt):
+        ku, kn = jax.random.split(kt)
+        return (jax.random.uniform(ku, (C, nu)),
+                jax.random.normal(kn, (C,)))
+
+    cand, jit = jax.vmap(
+        lambda k: jax.vmap(per_step)(jax.random.split(k, N))
+    )(jax.random.split(k3, P))
+    return [torch.tensor(np.asarray(a)) for a in (base, steps, cand, jit)]
+
+
+def test_plan_shares_one_draw_across_lanes_as_the_reference_does():
+    """The JAX benches seed a batch with ``vmap(plan_guess(key=None))``:
+    every lane draws from PRNGKey(0), so all lanes share one set of unit
+    draws. Handed those draws, the port's batched plan picks the same
+    rollout in every lane and returns the same seed z (atol 2e-4: float32
+    rollouts of 12 steps in two libraries)."""
+    S, P, B = 48, 6, 4
+    _, jnlp = jproblems.uas_2d(**KW)
+    jdata, tdata, tnlp = _setup()
+    jnlp = dataclasses.replace(jnlp, obstacle_form="pieces")
+    tnlp = dataclasses.replace(tnlp, obstacle_form="pieces")
+    shift = (np.random.default_rng(5).uniform(-0.4, 0.4, size=(B, 3))
+             * [1, 1, 0]).astype(np.float32)
+    jbatch = jax.tree_util.tree_map(
+        lambda a: jnp.broadcast_to(a, (B,) + a.shape), jdata)
+    jbatch = dataclasses.replace(jbatch, x0=jbatch.x0 + shift)
+    tbatch = tproblem.batch_tile(tdata, B)
+    tbatch = dataclasses.replace(
+        tbatch, x0=tbatch.x0 + torch.from_numpy(shift))
+
+    jplan = jax.vmap(lambda d: jshoot.plan(
+        jnlp.dynamics, KW["nsteps"], d, S, None, pulled=P))
+    _, _, jinfo = jplan(jbatch)
+    jz = jax.vmap(lambda d: jshoot.plan_guess(jnlp, d, S, pulled=P))(jbatch)
+
+    units = _reference_units(S, P, KW["nsteps"])
+    tX, tU, tinfo = tshoot.plan_from_units(tnlp.dynamics, tbatch, *units)
+    tz = torch.cat([tX, tU], dim=-1).reshape(B, -1)
+
+    jscores = np.asarray(jinfo["scores"])
+    free = jscores < 1e5
+    assert free.any(axis=1).all()          # every lane has a free rollout
+    np.testing.assert_array_equal((tinfo["scores"].numpy() < 1e5), free)
+    np.testing.assert_allclose(tinfo["scores"].numpy()[free], jscores[free],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(tinfo["best"].numpy(),
+                                  np.asarray(jinfo["best"]))
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=2e-4)
+    # lanes differ (their starts do), the draws do not: the walk controls
+    # of lane 0 and lane 1 are the same array
+    U0 = tshoot._walk_controls(tproblem.tree_map(lambda a: a[0], tbatch),
+                               *units[:2])
+    U1 = tshoot._walk_controls(tproblem.tree_map(lambda a: a[1], tbatch),
+                               *units[:2])
+    assert torch.equal(U0, U1)
+    assert not np.allclose(np.asarray(jz[0]), np.asarray(jz[1]))

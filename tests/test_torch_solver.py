@@ -168,8 +168,73 @@ def test_staged_solve_outcomes_match():
 
 
 def test_unported_config_raises():
+    # cyclic reduction, the separable assembly and the chord steps exist
+    cfg = tal.SolverConfig(kkt_solver="cr", chord_steps=2,
+                           sep_assembly=False)
+    assert (cfg.kkt_solver, cfg.chord_steps, cfg.sep_assembly) == (
+        "cr", 2, False)
+    assert tal.SolverConfig().sep_assembly is True
+    assert tal.SolverConfig().chord_steps == 0
     with pytest.raises(ValueError):
-        tal.SolverConfig(kkt_solver="cr")
-    for knob in ("hessian", "lm_rule", "ls_eta", "chord_steps"):
+        tal.SolverConfig(kkt_solver="pallas")
+    with pytest.raises(ValueError):
+        tal.SolverConfig(chord_steps=-1)
+    for knob in ("hessian", "lm_rule", "ls_eta", "ls_rule", "dual_relax",
+                 "ls_deep_round", "ls_exponents", "ls_backtracks"):
         with pytest.raises(TypeError):
             tal.SolverConfig(**{knob: 1})
+
+
+@pytest.mark.parametrize("kkt", ["scan", "cr"])
+def test_unbatched_solve_matches(kkt):
+    """One problem through ``solve`` in both packages: same status,
+    objective within 1e-3 relative, and under "scan" the same iteration
+    count."""
+    jv, jnlp = jproblems.uas_2d(**KW)
+    jnlp = dataclasses.replace(jnlp, obstacle_form="pieces")
+    _, tnlp = tproblems.uas_2d(**KW)
+    tnlp = dataclasses.replace(tnlp, obstacle_form="pieces")
+    jdata, _ = jv.to_device()
+    tdata = tproblem.vgpdata_from_numpy(
+        [np.asarray(a) for a in jax.tree.leaves(jdata)], device="cpu")
+    overrides, _ = J_TUNED["uas_2d"]
+    overrides = dict(overrides, max_total=0)
+    jcfg = jal.SolverConfig(kkt_solver=kkt, **overrides)
+    tcfg = dataclasses.replace(ttuned.tuned_config("uas_2d")[0],
+                               kkt_solver=kkt, max_total=0)
+    jres = jal.solve(jnlp, jcfg, jdata)
+    tres = tal.solve(tnlp, tcfg, tdata)
+    assert tres.z.shape == (tnlp.dims.nz,) and tres.status.shape == ()
+    assert tres.lam_def.shape == (12, 3) and tres.rho.shape == ()
+    assert int(tres.status) == int(jres.status) == 1
+    np.testing.assert_allclose(float(tres.obj), float(jres.obj), rtol=1e-3)
+    if kkt == "scan":
+        assert int(tres.inner_iters) == int(jres.inner_iters)
+    # a warm re-solve from the result: a handful of iterations, and the
+    # same outcome in both packages
+    jd2 = dataclasses.replace(jdata, x0=jdata.x0 + 0.01)
+    td2 = dataclasses.replace(tdata, x0=tdata.x0 + 0.01)
+    jw = jal.solve(jnlp, jcfg, jd2, jres.z,
+                   (jres.lam_def, jres.lam_eq, jres.mu), jres.rho)
+    tw = tal.solve(tnlp, tcfg, td2, tres.z,
+                   (tres.lam_def, tres.lam_eq, tres.mu), tres.rho)
+    assert int(tw.status) == int(jw.status) == 1
+    assert int(tw.inner_iters) < int(tres.inner_iters)
+    np.testing.assert_allclose(float(tw.obj), float(jw.obj), rtol=1e-3)
+
+
+def test_unbatched_solve_under_kernel_takes_cyclic_reduction(monkeypatch):
+    _, tnlp = tproblems.uas_2d(**KW)
+    tnlp = dataclasses.replace(tnlp, obstacle_form="pieces")
+    tdata, _ = tproblems.uas_2d(**KW)[0].to_device(device="cpu")
+    cfg = dataclasses.replace(ttuned.tuned_config("uas_2d")[0], max_total=12)
+    assert cfg.kkt_solver == "kernel"
+
+    def no_kernel(*a, **kw):
+        raise AssertionError("the unbatched solve called the kernel")
+
+    monkeypatch.setattr(tal.bt_cuda, "solve", no_kernel)
+    res = tal.solve(tnlp, cfg, tdata)
+    ref = tal.solve(tnlp, dataclasses.replace(cfg, kkt_solver="cr"), tdata)
+    assert torch.equal(res.z, ref.z)
+    assert int(res.inner_iters) == 12

@@ -50,7 +50,7 @@ def _points(n=64, seed=0):
 
 
 @pytest.mark.parametrize("scheme", ["hermite_simpson", "trapezoidal",
-                                    "euler"])
+                                    "euler", "radau"])
 def test_step_defect(scheme):
     rng = np.random.default_rng(1)
     x0, x1 = rng.normal(size=(2, 32, 3)).astype(np.float32)
@@ -61,6 +61,25 @@ def test_step_defect(scheme):
             x0, u0, x1, u1, t0)
     t = vmap(lambda a, b, c, d, tt: tcol.step_defect(
         tdyn.unicycle, a, b, c, d, tt, 0.2, None, scheme))(
+            *map(torch.from_numpy, (x0, u0, x1, u1, t0)))
+    _close(t, j)
+
+
+def test_radau_step_defect_fixed_wing():
+    """The registry's fixed-wing transcription: radau defects of the
+    3-DOF dynamics at states inside the model's bounds."""
+    rng = np.random.default_rng(4)
+    lo = np.array([-1, -1, 0.02, 0.01, -0.5, -3], np.float32)
+    hi = np.array([1, 1, 0.5, 0.04, 0.5, 3], np.float32)
+    x0, x1 = rng.uniform(lo, hi, size=(2, 32, 6)).astype(np.float32)
+    u0, u1 = rng.uniform([0.5, -1, 0], [3, 1, 1],
+                         size=(2, 32, 3)).astype(np.float32)
+    t0 = rng.uniform(0, 50, size=32).astype(np.float32)
+    j = jax.vmap(lambda a, b, c, d, t: jcol.step_defect(
+        jdyn.fixed_wing_3dof, a, b, c, d, t, 0.5, None, "radau"))(
+            x0, u0, x1, u1, t0)
+    t = vmap(lambda a, b, c, d, tt: tcol.step_defect(
+        tdyn.fixed_wing_3dof, a, b, c, d, tt, 0.5, None, "radau"))(
             *map(torch.from_numpy, (x0, u0, x1, u1, t0)))
     _close(t, j)
 
@@ -132,6 +151,7 @@ def test_unported_options_raise():
     _, tnlp = tproblems.uas_2d(nsteps=4)
     with pytest.raises(NotImplementedError):
         dataclasses.replace(tnlp, x_delay=1)
-    with pytest.raises(NotImplementedError):
+    assert tcol.SCHEMES == jcol.SCHEMES
+    with pytest.raises(ValueError, match="unknown scheme"):
         tcol.step_defect(tdyn.unicycle, *([torch.zeros(3)] * 4), 0.0, 0.1,
-                         None, "radau")
+                         None, "gauss")
