@@ -25,8 +25,10 @@ result line:
              path's four batch sizes and the ladder's full batches, both
              kernels in turns and
              the plain version timed with CUDA events over rotating
-             inputs (the kernels as replays of a CUDA graph of launches), beside the bound from the shapes, and one dense
-             ``torch.linalg.solve`` as the library yardstick;
+             inputs (the kernels as replays of a CUDA graph of
+             launches), beside the bound from the shapes and a dense
+             ``torch.linalg.solve`` of the assembled systems as the
+             library yardstick, and the same at the facade's shapes;
 4. main    — the port's main path on the default device: ``uas_2d`` N=50,
              B=2048, shooting seeds, the staged cold solve, the obstacle
              audit, and the warm fleet re-solve on x0 + 0.01; the kernel's
@@ -39,20 +41,40 @@ result line:
              then one problem (B=1) at K = 51, 101, 511, 2047, w=5: the
              plain scan, cyclic reduction and the kernel timed;
 7. mpc     — the single-problem warm re-solve at N=50
-             (``bench_harness.run_mpc``): statuses, both latencies, and
-             the kernel's launches (none: that route is cyclic reduction);
-8. bench   — ``bench_harness.bench`` at B=2048 with two timed cold and
-             warm batches and phase 7's MPC figures: its JSON line;
+             (``bench_harness.run_mpc``) under ``kkt_solver="kernel"``
+             (every iteration a launch at B=1) and again under ``"cr"``
+             (the JAX package's route, no launch; the first 10 of the 20
+             re-solves): statuses, latencies, launches and
+             cyclic-reduction solves of each;
+8. bench   — ``bench_harness.bench`` at B=2048 with one timed cold and
+             one timed warm batch and phase 7's MPC figures under
+             "kernel": its JSON line;
 9. ladder  — ``bench_scaling.run_config`` for pm20 (K=21, w=6, B=1024),
              pm3d (K=41, w=6, B=1024) and fw100 (K=101, w=9, B=256) under
              the registry configs: solved fractions, the kernel's launches
-             by shape, and a kernel-against-scan A/B at B=64 for each.
+             by shape, and an A/B at B=64 for each: pm20's and pm3d's cold
+             solves under the kernel against the plain "scan" path, and for
+             fw100 a warm re-solve of moved starts under the kernel against
+             "cr" (its cold solve is 156 KKT solves at K=101, a second each
+             by the scan and a quarter by cyclic reduction; the plain
+             version is held against the kernel at that shape in phase 3,
+             and against cyclic reduction in phase 6);
+10. facade — the library's entry point on the default device: the README's
+             Quick start on ``ocp_2d_ex1.xml`` (load, setup, solve, debug,
+             get_xtraj, save, load_csv), 20 ``mpc_step``s under "kernel"
+             and under "cr", ``solve_multistart`` on both shipped problems
+             (the OCP against the golden CSVs), ``solve_batch`` at B=2048
+             cold with a rescue of 512 lanes and warm, a small fleet whose
+             tight budget forces the rescue phase, and the CLI's
+             ``solve_ocp`` and ``mpc_demo 5`` in-process; one JSON line of
+             its findings.
 
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py
 --phases kernel,cr`` runs phases 1 and 2 and the named ones only, and
 prints neither line.
 """
+import dataclasses
 import json
 import os
 import re
@@ -67,7 +89,22 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # of the ladder's other models (pm20, pm3d, fw100)
 MAIN_SHAPES = ((51, 5, 2048), (51, 5, 1024), (51, 5, 256), (51, 5, 64))
 LADDER_SHAPES = ((21, 6, 1024), (41, 6, 1024), (101, 9, 256))
-TIMED_SHAPES = MAIN_SHAPES + LADDER_SHAPES
+# the facade's: ocp_2d_ex1.xml is K=33, w=4 (one problem, 8 starts, the
+# fleet, its rescue batch of RESCUE_LANES lanes times 4 starts, which is
+# the fleet's size again, the batch of a default rescue, B // 8 lanes
+# times 4, and the small fleet of FORCED_B lanes whose rescue takes
+# FORCED_LANES of them), mip_2d_ex1.xml is K=17, w=6 (8 starts); and the
+# main path's one problem. About one fleet lane in six ends its first
+# phase in an infeasible basin (the starts lie 0.01 outside a moving
+# obstacle), so the rescue is given a quarter of the fleet, not the
+# default eighth.
+FACADE_B, FORCED_B, FORCED_LANES = 2048, 64, 8
+RESCUE_LANES = FACADE_B // 4
+FACADE_SHAPES = ((33, 4, 1), (33, 4, 8), (33, 4, FACADE_B),
+                 (33, 4, FACADE_B // 2), (17, 6, 8))
+FORCED_SHAPES = ((33, 4, FORCED_B), (33, 4, FORCED_LANES * 4))
+B1_SHAPE = (51, 5, 1)
+TIMED_SHAPES = MAIN_SHAPES + LADDER_SHAPES + FACADE_SHAPES + (B1_SHAPE,)
 # batches that are no multiple of the lanes a block takes
 RAGGED_SHAPES = ((51, 5, 3), (41, 6, 7), (21, 6, 1000))
 TIMED_SET_BYTES = 100 * 2 ** 20
@@ -92,7 +129,12 @@ CHECKED = None
 # Cholesky (and the kernel, up to its width), and the B=1 horizons timed
 CR_SHAPES = ((51, 5, 64), (41, 6, 64), (101, 9, 64), (21, 10, 64))
 B1_HORIZONS = (51, 101, 511, 2047)
-PHASES = ("kernel", "main", "a/b", "cr", "mpc", "bench", "ladder")
+# phase 7: re-solves of the "cr" side (the "kernel" side takes 20)
+MPC_CR_STEPS = 10
+# phase 9, fw100's warm A/B: the starts move by this much (km; the ladder
+# scatters them within 0.05), and a re-solve gets this many iterations
+WARM_DRIFT, WARM_BUDGET = 0.005, 60
+PHASES = ("kernel", "main", "a/b", "cr", "mpc", "bench", "ladder", "facade")
 
 CARD = None
 
@@ -231,7 +273,9 @@ def path_shapes(bench_scaling):
             for b in [B] + [min(cap, B) for cap, _ in stages]:
                 if (K, w, b) not in shapes:
                     shapes.append((K, w, b))
-    return shapes
+    return shapes + [shape for shape in
+                     (B1_SHAPE,) + FACADE_SHAPES + FORCED_SHAPES
+                     if shape not in shapes]
 
 
 def assert_checked(path, launches_by):
@@ -300,8 +344,9 @@ def check_indefinite(torch, bt_cuda):
 def check_kernel(torch, bt_cuda, btridiag, shapes):
     """Phase 3: both kernels vs plain on the card at ``shapes`` and the
     ragged ones, then the timings at the main path's and the ladder's
-    full batches; returns (max_abs_err, times, library_ms) with
-    times[(K, w, B)] = dict(smem, global, plain, bound, bound_by)."""
+    full batches and the facade's shapes; returns (max_abs_err, times)
+    with times[(K, w, B)] = dict(smem, global, plain, library, bound,
+    bound_by)."""
     global CHECKED
     CHECKED = set()
     worst = 0.0
@@ -334,6 +379,16 @@ def check_kernel(torch, bt_cuda, btridiag, shapes):
         t["plain"] = median_ms(
             torch, lambda i: btridiag.solve_refined(*sets[i % n]),
             reps=PLAIN_REPS)
+        # the nearest single PyTorch call: a dense solve of the assembled
+        # [B, K w, K w] systems, no refinement; the assembly is not timed
+        D, O, r = sets[0]
+        H = dense(torch, D, O)
+        rhs = r.reshape(B, K * w, 1)
+        t["library"] = median_ms(
+            torch, lambda i: torch.linalg.solve(H, rhs), reps=5)
+        xd = torch.linalg.solve(H, rhs).reshape(B, K, w)
+        err_d = float((xd - bt_cuda.solve(D, O, r)).abs().max())
+        del H, xd
         t["bound"], t["bound_by"], nbytes, flops = bound(K, w, B)
         say("kernel", f"K={K} w={w} B={B} ({n} input sets in turn): "
                       + ", ".join(f"{v} {ms:.4f} ms" for v, ms in runs)
@@ -341,23 +396,13 @@ def check_kernel(torch, bt_cuda, btridiag, shapes):
                         f"of 20 replays of a graph of {TIMED_INNER} "
                         f"launches, plain of {PLAIN_REPS} single calls); "
                         f"bound {t['bound']:.6f} ms by "
-                        f"{t['bound_by']} ({nbytes} B, {flops:.0f} flop)")
+                        f"{t['bound_by']} ({nbytes} B, {flops:.0f} flop); "
+                        f"torch.linalg.solve on the dense [{B}, {K * w}, "
+                        f"{K * w}] systems (no refinement) "
+                        f"{t['library']:.4f} ms, median of 5, max|x_dense "
+                        f"- x_kernel| {err_d:.3e}")
         times[(K, w, B)] = t
-    # the nearest single PyTorch call: a dense solve of the assembled
-    # [B, K w, K w] systems, no refinement; the assembly is not timed
-    K, w, B = TIMED_SHAPES[0]
-    D, O, r = spd_problem(torch, B, K, w, seed=0)
-    H = dense(torch, D, O)
-    rhs = r.reshape(B, K * w, 1)
-    library_ms = median_ms(torch, lambda i: torch.linalg.solve(H, rhs),
-                           reps=5)
-    xd = torch.linalg.solve(H, rhs).reshape(B, K, w)
-    xk = bt_cuda.solve(D, O, r)
-    say("kernel", f"K={K} w={w} B={B}: torch.linalg.solve on the dense "
-                  f"[{B}, {K * w}, {K * w}] systems (dense, no refinement) "
-                  f"{library_ms:.4f} ms, median of 5; max|x_dense - "
-                  f"x_kernel| {float((xd - xk).abs().max()):.3e}")
-    return worst, times, library_ms
+    return worst, times
 
 
 def dense(torch, D, O):
@@ -371,11 +416,12 @@ def dense(torch, D, O):
     return H.reshape(B, K * w, K * w)
 
 
-def host_ms(torch, fn, reps):
+def host_ms(torch, fn, reps, warm=True):
     """Median host-clock milliseconds of ``fn()`` followed by a device
-    sync, after one warm-up call: what a caller that waits for the answer
-    sees."""
-    fn()
+    sync, after one warm-up call (none with ``warm`` off, for calls that
+    take seconds): what a caller that waits for the answer sees."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -422,8 +468,10 @@ def check_cr(torch, bt_cuda, btridiag, cyclic_reduction):
         D, O, r = spd_problem(torch, 1, K, w, seed=K)
         variant = bt_cuda.plan(K, w, 1).variant
         row = dict(
+            # one call at the long horizons, with no warm-up: the scan
+            # takes 1.4 s and 5.2 s there
             scan=host_ms(torch, lambda: btridiag.solve_refined(D, O, r),
-                         reps=3 if K > 200 else 7),
+                         reps=1 if K > 200 else 7, warm=K <= 200),
             cr=host_ms(torch,
                        lambda: cyclic_reduction.solve_refined(D, O, r),
                        reps=11),
@@ -443,41 +491,76 @@ def check_cr(torch, bt_cuda, btridiag, cyclic_reduction):
     return table
 
 
-def check_mpc(torch, bench_harness, bt_cuda):
-    """Phase 7: the single-problem warm re-solve at N=50 on the card;
-    returns ``run_mpc``'s result with the kernel's launch count over it
-    (``launches``: 0, since the unbatched solve's route is cyclic
-    reduction, so these latencies are that route's and not the
-    kernel's)."""
-    nlp, cfg, _, _, _ = bench_harness.prepare(1, MAIN_NSTEPS)
-    single = bench_harness.single_problem(MAIN_NSTEPS)
+def reset_counts(bt_cuda, cyclic_reduction):
+    """Every route's count to 0, just before a path is driven."""
     bt_cuda.LAUNCHES = 0
-    out = bench_harness.run_mpc(nlp, cfg, single)
-    out["launches"] = bt_cuda.LAUNCHES
-    n_ok = out["statuses"].count(1)
-    say("mpc", f"uas_2d N={MAIN_NSTEPS}, one problem, kkt_solver="
-               f"{cfg.kkt_solver} (the unbatched solve takes cyclic "
-               f"reduction: {out['launches']} kernel launches): cold "
-               f"status {int(out['cold'].status)} after "
-               f"{int(out['cold'].inner_iters)} iterations; re-solve "
-               f"statuses {out['statuses']}")
-    say("mpc", f"p50 re-solve latency {out['p50_ms']:.2f} ms with a sync "
-               f"after each, {out['pipelined_ms']:.2f} ms a step with 20 "
-               f"dispatched back to back and one sync")
-    if not out["finite"]:
-        raise AssertionError("an MPC re-solve returned non-finite z")
-    if n_ok < 18:
-        raise AssertionError(f"only {n_ok} of 20 MPC re-solves SOLVED")
-    if out["launches"]:
-        raise AssertionError("the unbatched solve launched the kernel")
-    return out
+    bt_cuda.LAUNCHES_BY.clear()
+    cyclic_reduction.SOLVES = 0
 
 
-def ab_runs(torch, bt_cuda, name, solve):
-    """``solve(kkt)`` -> (result, stage trips) under "kernel" and under
-    "scan"; every launch of the kernel side must be at a checked shape."""
+def check_mpc(torch, bench_harness, bt_cuda, cyclic_reduction):
+    """Phase 7: the single-problem warm re-solve at N=50 on the card under
+    both KKT routes; returns {route: ``run_mpc``'s result with the
+    kernel's launches and the cyclic-reduction solves over it}. Under
+    "kernel" every Newton iteration is one launch at B=1 and cyclic
+    reduction is never called; under "cr" the reverse. The "cr" side,
+    which only stands beside the other for comparison, takes the first
+    MPC_CR_STEPS of the 20 re-solves and skips the back-to-back part."""
+    nlp, cfg, _, _, _ = bench_harness.prepare(1, MAIN_NSTEPS)
+    if cfg.kkt_solver != "kernel":
+        raise AssertionError("the registry's route is not the kernel")
+    single = bench_harness.single_problem(MAIN_NSTEPS)
     runs = {}
-    for kkt in ("kernel", "scan"):
+    for route in ("kernel", "cr"):
+        reset_counts(bt_cuda, cyclic_reduction)
+        out = bench_harness.run_mpc(
+            nlp, dataclasses.replace(cfg, kkt_solver=route), single,
+            steps=20 if route == "kernel" else MPC_CR_STEPS,
+            pipelined=route == "kernel")
+        out["launches"] = bt_cuda.LAUNCHES
+        out["cr_solves"] = cyclic_reduction.SOLVES
+        by = dict(bt_cuda.LAUNCHES_BY)
+        n_ok = out["statuses"].count(1)
+        say("mpc", f"uas_2d N={MAIN_NSTEPS}, one problem, kkt_solver="
+                   f"{route}: {out['launches']} kernel launches "
+                   f"{sorted(by.items())}, {out['cr_solves']} cyclic-"
+                   f"reduction solves; cold status "
+                   f"{int(out['cold'].status)} after "
+                   f"{int(out['cold'].inner_iters)} iterations; re-solve "
+                   f"statuses {out['statuses']}, iterations {out['iters']}")
+        tail = ("" if out["pipelined_ms"] is None else
+                f", {out['pipelined_ms']:.2f} ms a step with 20 dispatched "
+                f"back to back and one sync")
+        say("mpc", f"kkt_solver={route}: p50 re-solve latency "
+                   f"{out['p50_ms']:.2f} ms over {len(out['statuses'])} "
+                   f"re-solves with a sync after each{tail}")
+        if not out["finite"]:
+            raise AssertionError("an MPC re-solve returned non-finite z")
+        if n_ok < len(out["statuses"]) - 2:
+            raise AssertionError(
+                f"only {n_ok} of {len(out['statuses'])} MPC re-solves "
+                f"SOLVED")
+        if route == "kernel":
+            if out["launches"] <= 0 or out["cr_solves"] or set(by) != {
+                    ("smem",) + B1_SHAPE}:
+                raise AssertionError(
+                    "under 'kernel' the unbatched solve should launch the "
+                    f"shared-memory kernel at {B1_SHAPE} and nothing else")
+            assert_checked("mpc", by)
+        elif out["launches"] or out["cr_solves"] <= 0:
+            raise AssertionError(
+                "under 'cr' the unbatched solve should take cyclic "
+                "reduction and launch no kernel")
+        runs[route] = out
+    return runs
+
+
+def ab_runs(torch, bt_cuda, name, solve, other="scan"):
+    """``solve(kkt)`` -> (result, stage trips) under "kernel" and under
+    ``other`` ("scan" or "cr", neither a kernel); every launch of the
+    kernel side must be at a checked shape."""
+    runs = {}
+    for kkt in ("kernel", other):
         bt_cuda.LAUNCHES_BY.clear()
         t0 = time.perf_counter()
         runs[kkt], trips = solve(kkt)
@@ -485,32 +568,32 @@ def ab_runs(torch, bt_cuda, name, solve):
         say("a/b", f"{name} {kkt}: stage trips {list(trips)} in "
                    f"{time.perf_counter() - t0:.1f} s")
         assert_checked(f"{name} a/b ({kkt})", bt_cuda.LAUNCHES_BY)
-    ab(torch, name, runs)
+    ab(torch, name, runs, other)
 
 
-def ab(torch, name, runs):
-    """Kernel against scan on the same batch: solved counts within 2,
+def ab(torch, name, runs, other):
+    """Kernel against ``other`` on the same batch: solved counts within 2,
     mean objectives over the lanes both solved within 1%."""
     ok_k = runs["kernel"].status == 1
-    ok_s = runs["scan"].status == 1
+    ok_s = runs[other].status == 1
     both = ok_k & ok_s
     n_k, n_s = int(ok_k.sum()), int(ok_s.sum())
     obj_k = float(runs["kernel"].obj[both].mean())
-    obj_s = float(runs["scan"].obj[both].mean())
-    say("a/b", f"{name} B={AB_B}: solved kernel {n_k} scan {n_s}; mean "
+    obj_s = float(runs[other].obj[both].mean())
+    say("a/b", f"{name} B={AB_B}: solved kernel {n_k} {other} {n_s}; mean "
                f"objective over {int(both.sum())} lanes solved by both: "
-               f"kernel {obj_k:.6f} scan {obj_s:.6f}")
+               f"kernel {obj_k:.6f} {other} {obj_s:.6f}")
     if abs(n_k - n_s) > 2:
         raise AssertionError(
-            f"{name}: kernel and scan solved counts differ by > 2")
+            f"{name}: kernel and {other} solved counts differ by > 2")
     if not abs(obj_k - obj_s) <= 0.01 * abs(obj_s):
         raise AssertionError(
-            f"{name}: kernel and scan objectives differ by > 1%")
+            f"{name}: kernel and {other} objectives differ by > 1%")
 
 
 def check_ladder(torch, bench_scaling, bt_cuda):
     """Phase 9: the ladder's three other models on the default device
-    under the registry configs, then their kernel-against-scan A/B;
+    under the registry configs, then their A/B against a plain route;
     returns {name: dict(solved_fraction, ..., launches_by)}."""
     out = {}
     for name, (K, w) in LADDER.items():
@@ -521,7 +604,7 @@ def check_ladder(torch, bench_scaling, bt_cuda):
         bt_cuda.LAUNCHES = 0
         bt_cuda.LAUNCHES_BY.clear()
         run = bench_scaling.run_config(
-            label, nlp, bdata, cfg, stages, reps=1, generator=gen,
+            label, nlp, bdata, cfg, stages, reps=0, generator=gen,
             log=lambda line: say("ladder", line))
         launches, by = bt_cuda.LAUNCHES, dict(bt_cuda.LAUNCHES_BY)
         say("ladder", f"{name}: kernel launches {launches} by (variant, K, "
@@ -532,9 +615,8 @@ def check_ladder(torch, bench_scaling, bt_cuda):
                 f"{name}: solved {run['solved_fraction']} < 0.95")
         if not bool(torch.isfinite(res.z).all()):
             raise AssertionError(f"{name}: non-finite z")
-        # one KKT solve per Newton iteration (chord steps included), so
-        # the first run alone makes sum(trips) launches
-        if launches < sum(run["stage_trips"]) or any(
+        # one KKT solve per Newton iteration (chord steps included)
+        if launches != sum(run["stage_trips"]) or any(
                 key[:3] != ("smem", K, w) for key in by):
             raise AssertionError(
                 f"{name}: {launches} launches for stage trips "
@@ -547,7 +629,7 @@ def check_ladder(torch, bench_scaling, bt_cuda):
         out[name] = dict(run, batch=B, launches=launches, launches_by={
             str(key[3]): n for key, n in sorted(
                 by.items(), key=lambda kv: -kv[0][3])})
-    for name in LADDER:
+    for name in ("pm20", "pm3d"):
         def solve(kkt, name=name):
             _, nlp, bdata, cfg, stages, _, _ = bench_scaling.prepare(
                 name, batch=AB_B, kkt_solver=kkt)
@@ -555,6 +637,288 @@ def check_ladder(torch, bench_scaling, bt_cuda):
                 nlp, cfg, bdata, None, stages, return_stage_trips=True)
 
         ab_runs(torch, bt_cuda, name, solve)
+    warm_ab(torch, bench_scaling, bt_cuda, "fw100")
+    return out
+
+
+def warm_ab(torch, bench_scaling, bt_cuda, name):
+    """The A/B of a model whose cold solve is long (fw100: 156 KKT solves
+    at K=101, a quarter of a second each by cyclic reduction): one cold
+    staged solve at B=64 under the kernel, then the same batch with its
+    starts moved by WARM_DRIFT re-solved from that result, under "kernel"
+    and under "cr", within WARM_BUDGET iterations."""
+    al_sqp = bench_scaling.al_sqp
+    _, nlp, bdata, cfg, stages, _, _ = bench_scaling.prepare(
+        name, batch=AB_B)
+    bt_cuda.LAUNCHES_BY.clear()
+    t0 = time.perf_counter()
+    cold, trips = al_sqp.solve_batched_staged(
+        nlp, cfg, bdata, None, stages, return_stage_trips=True)
+    n_cold = int((cold.status == 1).sum())
+    say("a/b", f"{name} kernel, cold: stage trips {list(trips)}, {n_cold} "
+               f"of {AB_B} solved in {time.perf_counter() - t0:.1f} s")
+    assert_checked(f"{name} a/b (cold)", bt_cuda.LAUNCHES_BY)
+    if n_cold < AB_B - 2:
+        raise AssertionError(f"{name}: the cold solve left lanes unsolved")
+    drift = torch.zeros_like(bdata.x0[0])
+    drift[:2] = WARM_DRIFT
+    moved = dataclasses.replace(bdata, x0=bdata.x0 + drift)
+
+    def solve(kkt):
+        res = al_sqp.solve_batched(
+            nlp, dataclasses.replace(cfg, kkt_solver=kkt,
+                                     max_total=WARM_BUDGET),
+            moved, cold.z, (cold.lam_def, cold.lam_eq, cold.mu), cold.rho)
+        return res, (int(res.inner_iters.max()),)
+
+    ab_runs(torch, bt_cuda, f"{name} warm", solve, other="cr")
+
+
+def check_facade(torch, bt_cuda, cyclic_reduction):
+    """Phase 10: the library's own entry point on the default device (no
+    ``device`` argument anywhere); returns its findings. Every step
+    raises on a miss."""
+    import tempfile
+
+    import numpy as np
+
+    from etol_tpu_torch import TrajectoryOptimizer, cli
+    from etol_tpu_torch.core import trajectory
+    from etol_tpu_torch.core.types import Status
+    from etol_tpu_torch.models import dynamics, problems
+    from etol_tpu_torch.solve import al_sqp
+
+    SOLVED = int(Status.SOLVED)
+    out = {}
+
+    def counts(path):
+        """The counts since the last reset, every launch at a checked
+        shape."""
+        by = dict(bt_cuda.LAUNCHES_BY)
+        assert_checked(f"facade {path}", by)
+        return bt_cuda.LAUNCHES, by, cyclic_reduction.SOLVES
+
+    def by_batch(by):
+        return {f"K{k[1]}_w{k[2]}_B{k[3]}": n for k, n in sorted(
+            by.items(), key=lambda kv: -kv[0][3])}
+
+    # -- the README's Quick start
+    reset_counts(bt_cuda, cyclic_reduction)
+    topt = TrajectoryOptimizer()
+    topt.load_configs(cli.default_config("ocp_2d_ex1.xml"))
+    topt.set_dynamics(dynamics.single_integrator)
+    topt.set_objective(lambda x, u, t, d: u[0] ** 2 + u[1] ** 2)
+    topt.setup()
+    res = topt.solve()
+    text = topt.debug()
+    score = topt.get_score()
+    times, X = topt.get_xtraj()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = topt.save((times, X), os.path.join(tmp, "state.csv"))
+        t_back, X_back = trajectory.load_csv(path)
+    launches, by, cr_solves = counts("solve")
+    iters = int(res.inner_iters)
+    say("facade", f"Quick start on ocp_2d_ex1.xml: {topt.get_status().name}"
+                  f", score {score:.6f}, {iters} iterations in "
+                  f"{topt.last_solve_seconds:.2f} s (first-use costs "
+                  f"included), xN {X[-1].tolist()}; {launches} kernel "
+                  f"launches {sorted(by.items())}, {cr_solves} cyclic-"
+                  f"reduction solves")
+    if X.device.type != "cuda":
+        raise AssertionError("the facade's default device is not the card")
+    if topt.get_status() != Status.SOLVED or not 1.2 < score < 1.8:
+        raise AssertionError(f"Quick start: {topt.get_status()}, {score}")
+    if "status=SOLVED" not in text or "nodes=33" not in text:
+        raise AssertionError(f"debug() says: {text}")
+    if float((X[-1].cpu() - torch.tensor([5.0, 4.0])).abs().max()) > 0.011:
+        raise AssertionError(f"xN {X[-1].tolist()} is not the goal")
+    if tuple(X_back.shape) != (33, 2) or float(
+            (X_back - X.cpu().double()).abs().max()) > 1e-6 or float(
+            (t_back - times.cpu().double()).abs().max()) > 1e-6:
+        raise AssertionError("the saved CSV does not read back")
+    if by != {("smem", 33, 4, 1): iters} or cr_solves:
+        raise AssertionError(
+            f"facade.solve(): {iters} iterations should be {iters} launches"
+            f" of the shared-memory kernel at (33, 4, 1), and no cyclic "
+            f"reduction")
+    out["solve"] = dict(score=score, iters=iters, launches=launches,
+                        seconds=topt.last_solve_seconds)
+
+    # -- 20 MPC steps along the solved trajectory, under both routes, each
+    # from the state the Quick start left
+    snap = (topt.data, topt.result, list(topt.vgp.x0))
+    cfg0 = topt.config
+    out["mpc"] = {}
+    for route in ("kernel", "cr"):
+        topt.config = dataclasses.replace(cfg0, kkt_solver=route)
+        topt.data, topt.result = snap[0], snap[1]
+        topt.vgp.x0 = list(snap[2])
+        reset_counts(bt_cuda, cyclic_reduction)
+        lat, statuses, its = [], [], []
+        for _ in range(20):
+            _, Xk = topt.get_xtraj()
+            r = topt.mpc_step(Xk[1])
+            lat.append(topt.last_solve_seconds * 1e3)
+            statuses.append(int(r.status))
+            its.append(int(r.inner_iters))
+        launches, by, cr_solves = counts(f"mpc_step ({route})")
+        p50 = sorted(lat)[len(lat) // 2]
+        mean = sum(lat) / len(lat)
+        say("facade", f"20 mpc_steps, kkt_solver={route}: statuses "
+                      f"{statuses}, iterations {its}; p50 {p50:.2f} ms, "
+                      f"mean {mean:.2f} ms (last_solve_seconds, a sync "
+                      f"each); {launches} kernel launches "
+                      f"{sorted(by.items())}, {cr_solves} cyclic-reduction "
+                      f"solves")
+        if statuses != [SOLVED] * 20:
+            raise AssertionError(f"mpc_step under {route}: {statuses}")
+        want = ((sum(its), 0) if route == "kernel" else (0, sum(its)))
+        if (launches, cr_solves) != want or (
+                by and set(by) != {("smem", 33, 4, 1)}):
+            raise AssertionError(
+                f"mpc_step under {route}: {launches} launches {by}, "
+                f"{cr_solves} cyclic-reduction solves for {sum(its)} "
+                f"iterations")
+        out["mpc"][route] = dict(p50_ms=p50, mean_ms=mean, launches=launches,
+                                 cr_solves=cr_solves, iters=sum(its))
+    topt.config = cfg0
+    topt.data, topt.result = snap[0], snap[1]
+    topt.vgp.x0 = list(snap[2])
+
+    # -- multistart on both shipped problems
+    fixtures = []
+    for name in ("ocp_2d_ex1.csv", "ocp_2d_ex1_alt.csv"):
+        path = os.path.join(HERE, "tests", "golden", name)
+        with open(path) as fh:
+            obj_g = float(fh.readline().split("obj=")[1].split(",")[0])
+        rows = np.loadtxt(path, delimiter=",", skiprows=2)
+        fixtures.append((name, rows[:, 1:3], obj_g))
+    reset_counts(bt_cuda, cyclic_reduction)
+    vgp, nlp = problems.canonical_ocp_2d()
+    data, _ = vgp.to_device()
+    t0 = time.perf_counter()
+    res = al_sqp.solve_multistart(nlp, al_sqp.SolverConfig(), data, 8)
+    Xm = nlp.unpack(res.z)[0].cpu().numpy()
+    ocp_s = time.perf_counter() - t0
+    launches, by, _ = counts("multistart ocp")
+    errs = {n: float(np.max(np.abs(Xm - Xg))) for n, Xg, _ in fixtures}
+    name, _, obj_g = min(fixtures, key=lambda f: errs[f[0]])
+    say("facade", f"solve_multistart(canonical_ocp_2d, 8): status "
+                  f"{int(res.status)}, objective {float(res.obj):.6f} "
+                  f"(golden {name}: {obj_g:.6f}), max state error "
+                  f"{errs[name]:.3e} (limit 1e-3; both basins {errs}), "
+                  f"{ocp_s:.2f} s, launches {by_batch(by)}")
+    if int(res.status) != SOLVED or not errs[name] <= 1e-3 or abs(
+            float(res.obj) - obj_g) > 2e-3:
+        raise AssertionError("the OCP multistart misses its golden")
+    if set(by) != {("smem", 33, 4, 8)}:
+        raise AssertionError(f"OCP multistart launches: {by}")
+    out["multistart_ocp"] = dict(obj=float(res.obj), state_err=errs[name],
+                                 golden=name, launches=launches,
+                                 seconds=ocp_s)
+
+    reset_counts(bt_cuda, cyclic_reduction)
+    vgp, nlp = problems.canonical_mip_2d()
+    data, _ = vgp.to_device()
+    t0 = time.perf_counter()
+    res = al_sqp.solve_multistart(
+        nlp, al_sqp.SolverConfig(), data, 8,
+        torch.Generator().manual_seed(cli.MIP_SEED))
+    mip_obj = float(res.obj)
+    mip_s = time.perf_counter() - t0
+    launches, by, _ = counts("multistart mip")
+    say("facade", f"solve_multistart(canonical_mip_2d, 8, seed "
+                  f"{cli.MIP_SEED}): status {int(res.status)}, score "
+                  f"{mip_obj:.6f}, violations {float(res.viol_eq):.2e} / "
+                  f"{float(res.viol_in):.2e}, {mip_s:.2f} s, launches "
+                  f"{by_batch(by)}")
+    if int(res.status) != SOLVED or set(by) != {("smem", 17, 6, 8)}:
+        raise AssertionError("the MIP multistart did not solve on the "
+                             f"kernel at (17, 6, 8): {by}")
+    out["multistart_mip"] = dict(obj=mip_obj, launches=launches,
+                                 seconds=mip_s)
+
+    # -- the fleet: x0 = (1, 2) plus offsets in [-0.1, 0] x [-0.1, 0.1] (a
+    # +x offset starts inside the moving obstacle mexz0), cold with a
+    # rescue of RESCUE_LANES lanes, then warm at x0 + 0.01
+    rng = np.random.default_rng(0)
+    x0 = (np.array([1.0, 2.0]) + rng.uniform(
+        [-0.1, -0.1], [0.0, 0.1], size=(FACADE_B, 2))).astype(np.float32)
+
+    def fleet(label, res):
+        status = res.status.cpu().numpy()
+        frac = float((status == SOLVED).mean())
+        launches, by, _ = counts(label)
+        found = dict(
+            solved_fraction=frac,
+            mean_iters=float(res.inner_iters.float().mean()),
+            max_iters=int(res.inner_iters.max()),
+            seconds=topt.last_solve_seconds, launches=launches,
+            launches_by=by_batch(by))
+        say("facade", f"solve_batch B={len(status)} {label}: {found}")
+        if any(key[:3] != ("smem", 33, 4) for key in by):
+            raise AssertionError(f"fleet launches: {by}")
+        return found, {int(v): int(n) for v, n in zip(
+            *np.unique(status, return_counts=True))}
+
+    reset_counts(bt_cuda, cyclic_reduction)
+    cold, cold_status = fleet(
+        f"cold with rescue ({RESCUE_LANES} lanes)",
+        topt.solve_batch(x0=x0, rescue_lanes=RESCUE_LANES))
+    reset_counts(bt_cuda, cyclic_reduction)
+    warm, warm_status = fleet("warm", topt.solve_batch(x0=x0 + 0.01,
+                                                       warm=True))
+    if not (cold["solved_fraction"] >= 0.99
+            and warm["solved_fraction"] >= 0.99):
+        raise AssertionError(
+            f"the fleet solved {cold['solved_fraction']} cold and "
+            f"{warm['solved_fraction']} warm; lanes by status: cold "
+            f"{cold_status}, warm {warm_status}")
+    if not warm["mean_iters"] < max(0.8 * cold["mean_iters"], 30.0):
+        raise AssertionError("the warm fleet re-solve shows no warm start")
+    out["fleet"] = dict(batch=FACADE_B, cold=cold, warm=warm)
+
+    # -- the rescue, forced: a budget of 40 iterations leaves the whole
+    # small fleet unsolved; the rescue re-solves FORCED_LANES of them cold
+    # from 4 starts each under the default config
+    tight = TrajectoryOptimizer(al_sqp.SolverConfig(max_total=40))
+    tight.load_configs(cli.default_config("ocp_2d_ex1.xml"))
+    tight.set_dynamics(dynamics.single_integrator)
+    tight.set_objective(lambda x, u, t, d: u[0] ** 2 + u[1] ** 2)
+    tight.setup()
+    reset_counts(bt_cuda, cyclic_reduction)
+    before = tight.solve_batch(x0=x0[:FORCED_B], rescue=False)
+    n_before = int((before.status == SOLVED).sum())
+    after = tight.solve_batch(x0=x0[:FORCED_B], rescue=True,
+                              rescue_lanes=FORCED_LANES,
+                              rescue_cfg=al_sqp.SolverConfig())
+    n_after = int((after.status == SOLVED).sum())
+    launches, by, _ = counts("forced rescue")
+    say("facade", f"forced rescue, B={FORCED_B}, max_total=40: {n_before} "
+                  f"lanes solved without the rescue, {n_after} with "
+                  f"{FORCED_LANES} lanes rescued; launches {by_batch(by)}")
+    if n_after - n_before < FORCED_LANES - 2 or not by.get(
+            ("smem", 33, 4, FORCED_LANES * 4)):
+        raise AssertionError("the rescue phase rescued too few lanes")
+    out["forced_rescue"] = dict(solved_before=n_before, solved_after=n_after,
+                                launches=by_batch(by))
+
+    # -- the CLI, in-process, in a directory of its own for its CSV files
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for argv in (["solve_ocp"], ["mpc_demo", "5"]):
+                reset_counts(bt_cuda, cyclic_reduction)
+                rc = cli.main(argv)
+                launches, by, cr_solves = counts("cli " + argv[0])
+                say("facade", f"cli {' '.join(argv)}: exit code {rc}, "
+                              f"{launches} kernel launches, {cr_solves} "
+                              f"cyclic-reduction solves")
+                if rc != 0 or launches <= 0 or cr_solves:
+                    raise AssertionError(f"cli {argv} failed")
+        finally:
+            os.chdir(here)
     return out
 
 
@@ -602,7 +966,7 @@ def main(phases=PHASES):
 
     # 3. both kernels vs plain, and their times
     if "kernel" in phases:
-        max_abs_err, times, library_ms = check_kernel(
+        max_abs_err, times = check_kernel(
             torch, bt_cuda, btridiag, path_shapes(bench_scaling))
         clock.lap("kernel")
 
@@ -634,7 +998,7 @@ def main(phases=PHASES):
 
     # 7. the single-problem MPC re-solve
     if "mpc" in phases:
-        mpc = check_mpc(torch, bench_harness, bt_cuda)
+        mpc = check_mpc(torch, bench_harness, bt_cuda, cyclic_reduction)
         clock.lap("mpc")
 
     # 8. the bench entry point; its JSON line goes out on a line of its
@@ -643,8 +1007,8 @@ def main(phases=PHASES):
         bt_cuda.LAUNCHES = 0
         bt_cuda.LAUNCHES_BY.clear()
         bench_line = bench_harness.bench(
-            MAIN_B, MAIN_NSTEPS, iters=2,
-            mpc=mpc if "mpc" in phases else None)
+            MAIN_B, MAIN_NSTEPS, iters=1,
+            mpc=mpc["kernel"] if "mpc" in phases else None)
         print(json.dumps(bench_line), flush=True)
         bench_launches = bt_cuda.LAUNCHES
         assert_checked("bench", bt_cuda.LAUNCHES_BY)
@@ -667,6 +1031,14 @@ def main(phases=PHASES):
         ladder = check_ladder(torch, bench_scaling, bt_cuda)
         clock.lap("ladder")
 
+    # 10. the library's entry point; its JSON line goes out before the
+    # last two
+    if "facade" in phases:
+        facade = check_facade(torch, bt_cuda, cyclic_reduction)
+        print(json.dumps({"phase": "facade", "card": CARD, **facade}),
+              flush=True)
+        clock.lap("facade")
+
     if tuple(phases) != PHASES:
         return
     print(CARD, flush=True)
@@ -685,28 +1057,38 @@ def main(phases=PHASES):
             str(key[3]): n for key, n in sorted(
                 launches_by.items(), key=lambda kv: -kv[0][3])},
         "launches_by_path": {
-            "main": launches, "mpc": mpc["launches"],
+            "main": launches, "mpc": mpc["kernel"]["launches"],
+            "mpc_cr": mpc["cr"]["launches"],
             "bench": bench_launches,
-            **{name: run["launches"] for name, run in ladder.items()}},
+            **{name: run["launches"] for name, run in ladder.items()},
+            "facade_solve": facade["solve"]["launches"],
+            "facade_mpc": facade["mpc"]["kernel"]["launches"],
+            "facade_mpc_cr": facade["mpc"]["cr"]["launches"],
+            "facade_multistart_ocp": facade["multistart_ocp"]["launches"],
+            "facade_multistart_mip": facade["multistart_mip"]["launches"],
+            "facade_fleet_cold": facade["fleet"]["cold"]["launches"],
+            "facade_fleet_warm": facade["fleet"]["warm"]["launches"]},
         "max_abs_err": max_abs_err,
         "ms": top["smem"],
         "ms_global_scratch": top["global"],
         "plain_ms": top["plain"],
         "bound_ms": top["bound"],
         "bound_by": top["bound_by"],
-        "library_ms": library_ms,
+        "library_ms": top["library"],
         "by_shape": {
             shape_key(shape): {
                 "ms": t["smem"], "ms_global_scratch": t["global"],
                 "plain_ms": t["plain"], "bound_ms": t["bound"],
-                "bound_by": t["bound_by"]}
+                "bound_by": t["bound_by"], "library_ms": t["library"]}
             for shape, t in times.items()},
         "ladder": ladder,
         "b1_routes_ms": {str(K): row for K, row in b1.items()},
-        "mpc": {"route": "cyclic reduction", "launches": mpc["launches"],
-                "p50_ms": mpc["p50_ms"],
-                "pipelined_ms": mpc["pipelined_ms"],
-                "solved": mpc["statuses"].count(1)},
+        "mpc": {route: {"launches": run["launches"],
+                        "cr_solves": run["cr_solves"],
+                        "p50_ms": run["p50_ms"],
+                        "pipelined_ms": run["pipelined_ms"],
+                        "solved": run["statuses"].count(1)}
+                for route, run in mpc.items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

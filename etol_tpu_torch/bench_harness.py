@@ -211,16 +211,19 @@ def run_warm_timed(nlp, cfg_warm, data: VGPData, prev: SolveResult,
                 solves_per_s=B * solved / t)
 
 
-def run_mpc(nlp, cfg, data: VGPData, steps: int = 20) -> dict:
+def run_mpc(nlp, cfg, data: VGPData, steps: int = 20,
+            pipelined: bool = True) -> dict:
     """Receding-horizon latency on ONE problem (``data`` without a lane
     axis): a cold :func:`al_sqp.solve`, then ``steps`` warm re-solves on
     x0 + 0.01 (i+1), each from the cold result's z, multipliers and
     penalty. Two numbers: the median of the re-solves timed one by one
     with a device sync each (``p50_ms``), and ``steps`` re-solves
-    dispatched back to back with one sync (``pipelined_ms`` a step). The
-    solver loop itself syncs once per Newton iteration, so the second
-    saves only the last sync of each solve. ``statuses`` and
-    ``finite`` are those of the one-by-one re-solves."""
+    dispatched back to back with one sync (``pipelined_ms`` a step; None
+    when ``pipelined`` is off). The solver loop itself syncs once per
+    Newton iteration, so the second saves only the last sync of each
+    solve. ``statuses``, ``iters`` and ``finite`` are those of the
+    one-by-one re-solves. The KKT route is ``cfg.kkt_solver``'s: under
+    "kernel" every iteration launches the kernel at a batch of one."""
     dev = data.x0.device
     res = al_sqp.solve(nlp, cfg, data)
     lam = (res.lam_def, res.lam_eq, res.mu)
@@ -231,22 +234,25 @@ def run_mpc(nlp, cfg, data: VGPData, steps: int = 20) -> dict:
 
     resolve_at(0)  # first-use costs stay out of the timings
     _sync(dev)
-    lat, statuses, finite = [], [], True
+    lat, statuses, iters, finite = [], [], [], True
     for i in range(steps):
         t0 = time.perf_counter()
         r = resolve_at(i)
         _sync(dev)
         lat.append(time.perf_counter() - t0)
         statuses.append(int(r.status))
+        iters.append(int(r.inner_iters))
         finite = finite and bool(torch.isfinite(r.z).all())
-    t0 = time.perf_counter()
-    for i in range(steps):
-        r = resolve_at(i)
-    _sync(dev)
-    pipelined = (time.perf_counter() - t0) / steps
-    return dict(cold=res, statuses=statuses, finite=finite,
+    pipelined_ms = None
+    if pipelined:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            r = resolve_at(i)
+        _sync(dev)
+        pipelined_ms = (time.perf_counter() - t0) / steps * 1e3
+    return dict(cold=res, statuses=statuses, iters=iters, finite=finite,
                 p50_ms=statistics.median(lat) * 1e3,
-                pipelined_ms=pipelined * 1e3)
+                pipelined_ms=pipelined_ms)
 
 
 def main_path(B: int, nsteps: int = 50, device=None) -> dict:

@@ -218,6 +218,65 @@ class VGP:
                   [list(map(float, p)) for p in points])
         )
 
+    def add_params(self, items: Dict[str, ParamConfig]) -> None:
+        self.params.update(items)
+
+    @property
+    def horizon(self) -> float:
+        return self.nsteps * self.dt
+
+    def print_configs(self) -> str:
+        """Console dump of the problem spec — printConfigs parity
+        (TrajectoryOptimizer.cpp:699-785)."""
+        lines = [
+            f"nSteps:\t\t{self.nsteps}",
+            f"dt:\t\t{self.dt}",
+            f"Time Span:\t{self.horizon}",
+            f"nStates:\t{self.nx} (rhorizon {self.x_rhorizon})",
+        ]
+        for i in range(self.nx):
+            name = self.xnames[i] if i < len(self.xnames) else f"x{i}"
+            vt = (
+                self.xvartype[i].to_xml()
+                if i < len(self.xvartype)
+                else "C"
+            )
+            lines.append(
+                f"  state {name} [{vt}]: bounds [{self.xlower[i]}, "
+                f"{self.xupper[i]}] x0={self.x0[i]} xf={self.xf[i]} "
+                f"tol={self.xtol[i]}"
+            )
+        lines.append(f"nControls:\t{self.nu} (rhorizon {self.u_rhorizon})")
+        for i in range(self.nu):
+            name = self.unames[i] if i < len(self.unames) else f"u{i}"
+            vt = (
+                self.uvartype[i].to_xml()
+                if i < len(self.uvartype)
+                else "C"
+            )
+            lines.append(
+                f"  control {name} [{vt}]: bounds [{self.ulower[i]}, "
+                f"{self.uupper[i]}]"
+            )
+        lines.append(f"Exclusion Zones:\t{len(self.obstacles)}")
+        for i, poly in enumerate(self.obstacles):
+            corners = ", ".join(f"({p[0]}, {p[1]})" for p in poly)
+            lines.append(f"  exz{i}: {corners}")
+        lines.append(f"Moving Exclusion Zones:\t{len(self.tracks)}")
+        for i, trk in enumerate(self.tracks):
+            lines.append(
+                f"  mexz{i}: r={trk.radius} waypoints="
+                + ", ".join(
+                    f"t={t}:{p}" for t, p in zip(trk.times, trk.points)
+                )
+            )
+        if self.params:
+            lines.append(f"Params:\t{sorted(self.params)}")
+        out = "\n".join(lines)
+        print(out)
+        return out
+
+    # ---- regions (genRegion parity) -----------------------------------
     def regions(self):
         """Convex partition of every obstacle
         (genRegion, TrajectoryOptimizer.cpp:84-159)."""

@@ -14,6 +14,24 @@ def single_integrator(x, u, t, data):
     return u[: x.shape[0]]
 
 
+def single_integrator_l1(x, u, t, data):
+    """Single integrator with abs-epigraph controls.
+
+    The MILP examples use 4 controls for a 2D vehicle: u0, u1 drive the
+    dynamics; u2, u3 are epigraph variables with u2 >= |u0|, u3 >= |u1|
+    (absConstraint, etol_glpk_example1.cpp:131-158) so the L1 objective
+    min sum(u2+u3) is linear. Dynamics only see the first nx controls.
+    """
+    return u[: x.shape[0]]
+
+
+def l1_epigraph_constraints(x, u, t, data):
+    """The four abs-epigraph rows, <= 0 feasible:
+    u0 - u2 <= 0, -u0 - u2 <= 0, u1 - u3 <= 0, -u1 - u3 <= 0."""
+    return torch.stack(
+        [u[0] - u[2], -u[0] - u[2], u[1] - u[3], -u[1] - u[3]])
+
+
 def double_integrator(x, u, t, data):
     """2D double integrator: x = [px, py, vx, vy], u = [ax, ay]."""
     return torch.cat([x[2:4], u[:2]])

@@ -1,21 +1,66 @@
 """Canonical VGP builders as ``(VGP, NLP)`` factories.
 
-Counterparts of the scaling-ladder factories of
-``etol_tpu/models/problems.py`` (``double_integrator_2d``, ``uas_2d``,
+Counterparts of the factories of ``etol_tpu/models/problems.py``: the
+two shipped XML problems (``canonical_ocp_2d``, ``canonical_mip_2d``)
+and the scaling ladder (``double_integrator_2d``, ``uas_2d``,
 ``point_mass_3d``, ``fixed_wing_3dof``); call
-``vgp.to_device(device=...)`` and hand both to
-:func:`etol_tpu_torch.solve.al_sqp.solve_batched_staged`.
+``vgp.to_device(device=...)`` and hand both to the solvers of
+:mod:`etol_tpu_torch.solve.al_sqp`.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+import os
+from typing import Optional, Sequence
 
 import torch
 
 from ..core.problem import VGP
+from ..core.xml_io import load_configs
 from ..transcribe.nlp import NLP
 from . import dynamics
+
+_CONFIG_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(__file__)), "configs"
+)
+
+
+def _default_xml(name: str) -> str:
+    return os.path.join(_CONFIG_DIR, name)
+
+
+def canonical_ocp_2d(
+    xml_path: Optional[str] = None, scheme: str = "trapezoidal"
+):
+    """The smooth canonical VGP (ocp_2d_ex1.xml): 2D single integrator,
+    min integral(u0^2+u1^2), edge-ellipse obstacles + 2 moving circles —
+    the problem of etol_psopt_example1.cpp / etol_dymos_example1.cpp."""
+    vgp = load_configs(xml_path or _default_xml("ocp_2d_ex1.xml"))
+    nlp = NLP(
+        dims=vgp.dims(),
+        dynamics=dynamics.single_integrator,
+        running_cost=lambda x, u, t, d: u[0] ** 2 + u[1] ** 2,
+        scheme=scheme,
+        cost_form="integral",
+    )
+    return vgp, nlp
+
+
+def canonical_mip_2d(xml_path: Optional[str] = None):
+    """The MILP canonical VGP (mip_2d_ex1.xml): 2D single integrator with
+    L1 objective via abs-epigraph controls u2,u3 — the problem of
+    etol_glpk_example1.cpp (min sum(u2+u3), x_k = x_{k-1} + dt u_k).
+    Solved smoothly: the big-M disjunctions become edge ellipses."""
+    vgp = load_configs(xml_path or _default_xml("mip_2d_ex1.xml"))
+    nlp = NLP(
+        dims=vgp.dims(),
+        dynamics=dynamics.single_integrator_l1,
+        running_cost=lambda x, u, t, d: u[2] + u[3],
+        path_ineq=(dynamics.l1_epigraph_constraints,),
+        scheme="euler",
+        cost_form="sum",
+    )
+    return vgp, nlp
 
 
 def _box_obstacles(

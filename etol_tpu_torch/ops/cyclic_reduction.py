@@ -9,9 +9,9 @@ ceil(log2(K+1)) levels, each one batch of small-matrix operations over
 the surviving nodes and over every leading dim. The level loop is a
 Python loop over sizes known from the shape.
 
-It is the solver's ``kkt_solver="cr"`` path, the path of the unbatched
-:func:`etol_tpu_torch.solve.al_sqp.solve` under ``"kernel"``, and the
-path of node widths above the CUDA kernel's 9.
+It is the solver's ``kkt_solver="cr"`` path, and under ``"kernel"``
+the path of node widths above the CUDA kernel's 9 and of float64
+problems.
 
 System convention matches btridiag: H[k,k] = D[..., k], H[k,k+1] =
 O[..., k], H[k+1,k] = O[..., k]^T. Intended for the damped AL Hessian
@@ -25,6 +25,10 @@ import torch
 
 from ..solve import btridiag
 from ..solve.btridiag import _chol, _tri_solve
+
+#: calls of :func:`solve_refined` in this process; a run reads it to show
+#: which KKT route its solves took
+SOLVES = 0
 
 
 def _inv_apply(Dk, *rhs):
@@ -127,6 +131,8 @@ def solve_refined(D, O, r):
     solve on the residual), which is how every caller uses it: the
     refinement rescues float32 accuracy when rho makes the system
     ill-conditioned."""
+    global SOLVES
+    SOLVES += 1
     x = solve(D, O, r)
     resid = r - btridiag.matvec(D, O, x)
     return x + solve(D, O, resid)

@@ -21,14 +21,18 @@ freeze wraps the whole trip. Testing ``active.any()`` syncs the host
 once per trip.
 
 The KKT solve. ``kkt_solver="kernel"`` launches the CUDA kernel
-(:mod:`..ops.bt_cuda`) from the batched entry points for node widths up
-to 9; nodes wider than that, and the unbatched :func:`solve`, take
-cyclic reduction (:mod:`..ops.cyclic_reduction`), as in the JAX
-package. Both routes are chosen from the shape and the entry point
-before anything is launched: a kernel that fails to build or launch
-raises. ``"scan"`` and ``"cr"`` name one path for every shape.
+(:mod:`..ops.bt_cuda`) for float32 problems with node widths up to 9,
+from every entry point: the unbatched :func:`solve` is a batch of one
+and launches it too (on an H100 one launch at K=51, w=5 takes under
+0.1 ms of host time against tens of milliseconds for the log-depth
+sweep of small torch ops; the JAX package's unbatched route is cyclic
+reduction, a choice made for the TPU). Nodes wider than 9 and float64
+problems take cyclic reduction (:mod:`..ops.cyclic_reduction`). The
+route is chosen from the width and the dtype before anything is
+launched: a kernel that fails to build or launch raises. ``"scan"``
+and ``"cr"`` name one path for every shape and dtype.
 
-Precision. Float32 throughout, with reduced-precision matmul modes off:
+Precision. Float32 by default, with reduced-precision matmul modes off:
 the reference pins ``Precision.HIGHEST`` because reduced-precision
 products corrupt the Gauss-Newton blocks once rho is large.
 """
@@ -49,7 +53,7 @@ from ..core.problem import VGPData, map_lanes, tree_map
 from ..core.types import Status
 from ..ops import bt_cuda, cyclic_reduction
 from ..transcribe.nlp import NLP
-from . import btridiag
+from . import btridiag, shooting
 
 # step-size grid of the parallel line search: alphas = 0.5**j
 _LS_EXPONENTS = tuple(range(24))
@@ -59,9 +63,8 @@ _LS_EXPONENTS = tuple(range(24))
 class SolverConfig:
     """Solver knobs; the defaults and meanings are the JAX package's
     (see ``etol_tpu.solve.al_sqp.SolverConfig`` for the measurements
-    behind each). Its knobs that no registry entry sets to anything but
-    the one value ported here are not fields: the Hessian is
-    ``hessian="defect"`` (exact dynamics curvature (λ+ρc)·∇²c), the
+    behind each). Its knobs that no registry entry and no option dialect
+    sets to anything but the one value ported here are not fields: the
     Levenberg rule is ``lm_rule="ratio"``, and ``ls_eta``, ``ls_rule``,
     ``dual_relax``, ``ls_deep_round``, ``ls_exponents`` and
     ``ls_backtracks`` do not exist (asking for them is a TypeError)."""
@@ -76,6 +79,15 @@ class SolverConfig:
     rho_max: float = 1e5
     viol_decrease: float = 0.5  # required viol reduction else rho grows
     reg: float = 1e-6           # base diagonal regularization
+    hessian: str = "defect"     # constraint curvature: "defect" adds
+                                # the exact dynamics curvature
+                                # (λ+ρc)·∇²c to the Gauss-Newton blocks
+                                # (zero on linear dynamics, decisive on
+                                # nonlinear ones); "gn" = Gauss-Newton
+                                # only; "full" also adds the curvature
+                                # of the inequalities and of the user
+                                # equalities (can turn blocks indefinite
+                                # near obstacles; the damping absorbs it)
     lm0: float = 1e-3           # initial Levenberg damping (relative)
     lm_min: float = 1e-6
     lm_max: float = 30.0
@@ -86,9 +98,11 @@ class SolverConfig:
     stall_tol: float = 1e-7     # relative AL-decrease floor
     kkt_solver: str = "kernel"  # "kernel": ops.bt_cuda (the CUDA kernel
                                 # on a card, its plain version on the
-                                # CPU) for node widths up to the
-                                # kernel's 9, cyclic reduction for wider
-                                # nodes and in the unbatched solve();
+                                # CPU) for float32 nodes up to the
+                                # kernel's width 9, in the batched
+                                # solves and in the unbatched solve()
+                                # alike; cyclic reduction for wider
+                                # nodes and for float64;
                                 # "scan": the plain torch block Cholesky
                                 # everywhere; "cr": cyclic reduction
                                 # everywhere
@@ -110,6 +124,11 @@ class SolverConfig:
             raise ValueError(
                 f"kkt_solver must be 'kernel', 'scan' or 'cr', got "
                 f"{self.kkt_solver!r}"
+            )
+        if self.hessian not in ("defect", "gn", "full"):
+            raise ValueError(
+                f"hessian must be 'defect', 'gn' or 'full', got "
+                f"{self.hessian!r}"
             )
         if self.chord_steps < 0:
             raise ValueError(
@@ -178,13 +197,15 @@ class _ALFuncs:
         self.nlp, self.cfg, self.data = nlp, cfg, data
         d = nlp.dims
         self.K, self.w = d.nodes, d.node_width
-        # the KKT route, from the config and the node width alone: the
-        # kernel takes widths up to MAX_W, wider nodes go to cyclic
-        # reduction (as the JAX package's vmap rule does)
-        self.kkt = cfg.kkt_solver
-        if self.kkt == "kernel" and self.w > bt_cuda.MAX_W:
-            self.kkt = "cr"
         self.dtype = data.x0.dtype
+        # the KKT route, from the config, the node width and the dtype
+        # alone: the kernel takes float32 nodes up to MAX_W wide; wider
+        # nodes (as in the JAX package's vmap rule) and float64 problems
+        # go to cyclic reduction
+        self.kkt = cfg.kkt_solver
+        if self.kkt == "kernel" and (
+                self.w > bt_cuda.MAX_W or self.dtype != torch.float32):
+            self.kkt = "cr"
         dev = data.x0.device
         self.ks_step = torch.arange(d.nsteps, device=dev)
         self.ks_node = torch.arange(self.K, device=dev)
@@ -206,9 +227,14 @@ class _ALFuncs:
     # ---- per-lane math ------------------------------------------------
     def _residuals_lane(self, data, cscale, tc, Z):
         nlp = self.nlp
-        c_def = vmap(lambda a, b, k: nlp.step_defect(a, b, k, data))(
-            Z[:-1], Z[1:], self.ks_step
-        ) / cscale
+        if nlp.delay:
+            c_def = vmap(lambda W, k: nlp.pair_defect(W, k, data))(
+                nlp.step_windows(Z), self.ks_step
+            ) / cscale
+        else:
+            c_def = vmap(lambda a, b, k: nlp.step_defect(a, b, k, data))(
+                Z[:-1], Z[1:], self.ks_step
+            ) / cscale
         c_eq = vmap(lambda zn, k: nlp.node_eq(zn, k, data))(Z, self.ks_node)
         g = vmap(
             lambda zn, k, tck: nlp.node_ineq_cached(zn, k, tck, data)
@@ -283,10 +309,13 @@ class _ALFuncs:
 
     def gn_blocks(self, Z, lam_def, lam_eq, mu, rho, free, lm, g):
         """AL Hessian blocks (D [B,K,w,w], O [B,K-1,w,w]) in scaled
-        coordinates: Gauss-Newton + the exact defect curvature (per
-        node for euler/trapezoidal under ``cfg.sep_assembly``, else the
-        generic node-pair path), active-set masking and Levenberg
-        damping. ``g`` carries the inequality residuals at Z."""
+        coordinates: Gauss-Newton + the constraint curvature that
+        ``cfg.hessian`` names (the defect's per node for memoryless
+        euler/trapezoidal under ``cfg.sep_assembly``, else on the
+        generic node-pair path; a delayed problem differentiates only
+        the two newest nodes of each window, which keeps the blocks
+        tridiagonal), active-set masking and Levenberg damping. ``g``
+        carries the inequality residuals at Z."""
         return self._lanes(
             self._gn_blocks_lane, self.scale, self.cscale, self.track_ctrs,
             Z, lam_def, lam_eq, mu, rho, free, lm, g,
@@ -321,11 +350,36 @@ class _ALFuncs:
             if nlp.path_ineq:
                 Gu = _jacfwd(lambda v: nlp.node_ineq_user(v, k, data))(zn)
                 De = De + (Gu * act[m_obs:, None]).T @ Gu
-            return H + rho * De
+            H = H + rho * De
+            if cfg.hessian == "full":
+                # Σ s·∇²g with s = max(0, μ+ρg), and (λ+ρh)·∇²h; the
+                # weights are constants of the differentiation
+                sg = torch.clamp(mu_k + rho * g_k, min=0.0)
+                if m_obs:
+                    Hoo = hessian(
+                        lambda v: torch.sum(
+                            sg[:m_obs] * nlp.node_ineq_obs(
+                                torch.cat([v, x[pd:]]), k, tc_k, data)
+                        )
+                    )(x[:pd])
+                    H = H + tnf.pad(Hoo, (0, w - pd, 0, w - pd))
+                if nlp.path_ineq:
+                    H = H + hessian(
+                        lambda v: torch.sum(
+                            sg[m_obs:] * nlp.node_ineq_user(v, k, data))
+                    )(zn)
+                if nlp.path_eq:
+                    se = lam_eq_k + rho * nlp.node_eq(zn, k, data)
+                    H = H + hessian(
+                        lambda v: torch.sum(se * nlp.node_eq(v, k, data))
+                    )(zn)
+            return H
 
         D = vmap(node_blocks)(Z, self.ks_node, mu, lam_eq, tc, g)
 
-        if cfg.sep_assembly and nlp.scheme in ("euler", "trapezoidal"):
+        if nlp.delay:
+            Dc, O = self._window_coupling(data, cscale, Z, lam_def, rho)
+        elif cfg.sep_assembly and nlp.scheme in ("euler", "trapezoidal"):
             Dc, O = self._sep_coupling(data, cscale, Z, lam_def, rho)
         else:
             Dc, O = self._pair_coupling(data, cscale, Z, lam_def, rho)
@@ -357,6 +411,9 @@ class _ALFuncs:
             return A, Bk
 
         A, Bj = vmap(step_jacs)(Z[:-1], Z[1:], self.ks_step)
+        if self.cfg.hessian == "gn":
+            return self._gn_coupling(A, Bj, rho)
+
         # exact defect curvature: hessian over the node pair of
         # (λ+ρc)·c, split into its four w×w quadrants
         def pair_curv(a, b, k, lam_k):
@@ -369,6 +426,41 @@ class _ALFuncs:
             return Hp[:w, :w], Hp[w:, w:], Hp[:w, w:]
 
         Haa, Hbb, Hab = vmap(pair_curv)(Z[:-1], Z[1:], self.ks_step, lam_def)
+        return self._gn_coupling(A, Bj, rho, Haa, Hbb, Hab)
+
+    def _window_coupling(self, data, cscale, Z, lam_def, rho):
+        """Step coupling of a delayed problem: Jacobians and curvature of
+        each step's defect in the two newest nodes of its window only
+        (older-node coupling stays out of the blocks; the gradient stays
+        exact, so this is an inexact-Newton preconditioner, not an
+        approximation of the problem). Same returns as
+        :meth:`_pair_coupling`."""
+        nlp, w = self.nlp, self.w
+
+        def defect(Wk, a, b, k):
+            """Step k's scaled defect with the window's two newest rows
+            replaced by a, b."""
+            return nlp.pair_defect(
+                torch.cat([Wk[:-2], a[None], b[None]]), k, data) / cscale
+
+        def step_jacs(Wk, k):
+            A = _jacfwd(lambda v: defect(Wk, v, Wk[-1], k))(Wk[-2])
+            Bk = _jacfwd(lambda v: defect(Wk, Wk[-2], v, k))(Wk[-1])
+            return A, Bk
+
+        Wn = nlp.step_windows(Z)
+        A, Bj = vmap(step_jacs)(Wn, self.ks_step)
+        if self.cfg.hessian == "gn":
+            return self._gn_coupling(A, Bj, rho)
+
+        def pair_curv(Wk, k, lam_k):
+            sdef = lam_k + rho * defect(Wk, Wk[-2], Wk[-1], k)
+            Hp = hessian(
+                lambda v: torch.sum(sdef * defect(Wk, v[:w], v[w:], k))
+            )(torch.cat([Wk[-2], Wk[-1]]))
+            return Hp[:w, :w], Hp[w:, w:], Hp[:w, w:]
+
+        Haa, Hbb, Hab = vmap(pair_curv)(Wn, self.ks_step, lam_def)
         return self._gn_coupling(A, Bj, rho, Haa, Hbb, Hab)
 
     @staticmethod
@@ -393,7 +485,7 @@ class _ALFuncs:
         dt, cs = data.dt, cscale
 
         def fnode(zn, k):
-            x, u = nlp._split(zn)
+            x, u, _ = nlp._split(zn)
             return nlp.dynamics(x, u, k.to(zn.dtype) * dt, data)
 
         fvals = vmap(fnode)(Z, self.ks_node)
@@ -414,6 +506,9 @@ class _ALFuncs:
             Bj = Ecs - (0.5 * dt) * Js[1:]
             cdef = X0[1:] - X0[:-1] - (0.5 * dt) * (fvals[:-1] + fvals[1:])
             coef = -0.5 * dt
+        Dc, O = self._gn_coupling(A, Bj, rho)
+        if self.cfg.hessian == "gn":
+            return Dc, O
         s_eff = (lam_def + rho * (cdef / cs)) / cs         # [K-1, nx]
         wn = tnf.pad(s_eff, (0, 0, 1, 0))
         if nlp.scheme == "trapezoidal":
@@ -422,7 +517,6 @@ class _ALFuncs:
             lambda zn, k, wk: hessian(
                 lambda v: torch.sum(wk * fnode(v, k)))(zn)
         )(Z, self.ks_node, wn)                            # [K, w, w]
-        Dc, O = self._gn_coupling(A, Bj, rho)
         return Dc + Hn, O
 
     def proj_grad_norm(self, Z, grad_):
@@ -732,13 +826,11 @@ def solve(
     it (the MPC re-solve: pass the previous result's z, multipliers and
     penalty).
 
-    The KKT route: under ``kkt_solver="kernel"`` this unbatched solve
-    takes cyclic reduction, as the JAX package's does (there the kernel
-    is reached only through ``vmap``); ``"scan"`` and ``"cr"`` mean what
-    they say. Inside, it is a batch of one."""
-    if cfg.kkt_solver == "kernel":
-        cfg = dataclasses.replace(cfg, kkt_solver="cr")
-
+    Inside, it is a batch of one, on the same KKT route as a batch:
+    under ``kkt_solver="kernel"`` every Newton iteration is one launch
+    of the kernel at B=1 (float32, node width up to 9; else cyclic
+    reduction), and ``"cr"`` selects cyclic reduction, the JAX package's
+    route for its unbatched solve, by name."""
     def lane(a):
         return a[None]
 
@@ -768,6 +860,199 @@ def solve_batched(
     if lam0 is None:
         lam0 = init_multipliers(nlp, data)
     return _solve_batch(nlp, cfg, data, z0, lam0, rho0)
+
+
+def draw_deltas(n_starts: int, nx: int, spread: float,
+                generator: torch.Generator, device, dtype,
+                lanes: Optional[int] = None):
+    """The random part of :func:`solve_multistart`: state bumps uniform
+    in ±``spread`` as fractions of the state range, [n_starts, nx] (with
+    ``lanes``: [lanes, n_starts, nx], draws of its own for each lane).
+    Drawn on the generator's own device and handed to ``device``. The
+    draws do not reproduce ``jax.random``'s."""
+    shape = (n_starts, nx) if lanes is None else (lanes, n_starts, nx)
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=dtype).to(device)
+    return spread * (2.0 * u - 1.0)
+
+
+def multistart_guesses(nlp: NLP, data: VGPData, deltas, z_shoot=None):
+    """The deterministic part: the guesses [n_starts, nz] of ONE problem
+    from ``deltas`` [n_starts, nx] (fractions of the state range). Start
+    0 is the nominal guess; the others add a smooth half-sine state bump
+    that is zero at both ends, so x0 and xf are respected; ``z_shoot``
+    [nz] (a shooting seed) takes index ``1 % n_starts``."""
+    d = nlp.dims
+    K = d.nodes
+    n = deltas.shape[0]
+    base = nlp.initial_guess(data).reshape(K, d.node_width)
+    window = torch.sin(
+        torch.pi * torch.arange(K, device=base.device).to(base.dtype)
+        / (K - 1))
+    first = torch.arange(n, device=base.device) == 0
+    deltas = torch.where(first[:, None], torch.zeros_like(deltas),
+                         deltas * (data.x_ub - data.x_lb))
+    bump = window[None, :, None] * deltas[:, None, :]        # [n, K, nx]
+    z0s = (base[None] + tnf.pad(bump, (0, d.node_width - d.nx))).reshape(
+        n, -1)
+    if z_shoot is not None:
+        at = torch.arange(n, device=base.device) == 1 % n
+        z0s = torch.where(at[:, None], z_shoot, z0s)
+    return z0s
+
+
+def select_best(res: SolveResult, cfg: SolverConfig, maximize: bool):
+    """Index of the best start along the LAST axis of ``res``'s scalar
+    fields: the lowest ``sign·obj`` among the feasible ones (violations
+    within 10 tol_cons); infeasible starts rank 1e9 behind, a non-finite
+    objective last; ties go to the first."""
+    feas = (res.viol_eq <= 10.0 * cfg.tol_cons) & (
+        res.viol_in <= 10.0 * cfg.tol_cons)
+    sign = -1.0 if maximize else 1.0
+    score = torch.where(torch.isfinite(res.obj), sign * res.obj,
+                        torch.full_like(res.obj, float("inf")))
+    score = score + torch.where(feas, 0.0, 1e9).to(score.dtype)
+    return torch.argmin(score, dim=-1)
+
+
+def _multistart_lanes(nlp: NLP, cfg: SolverConfig, data: VGPData, deltas,
+                      z_shoot=None) -> SolveResult:
+    """:func:`solve_multistart` for M problems at once (``data`` with a
+    lane axis, ``deltas`` [M, n, nx], ``z_shoot`` [M, nz] or None): the
+    M·n starts are ONE flat batch of :func:`solve_batched`, and every
+    lane keeps its best start."""
+    M, n = deltas.shape[:2]
+    if z_shoot is None:
+        z0s = map_lanes(
+            lambda d, dl: multistart_guesses(nlp, d, dl), data, deltas)
+    else:
+        z0s = map_lanes(
+            lambda d, dl, zs: multistart_guesses(nlp, d, dl, zs),
+            data, deltas, z_shoot)
+
+    def flat(a):  # lane-major: starts of one lane are neighbours
+        return a[:, None].expand((M, n) + tuple(a.shape[1:])).reshape(
+            (M * n,) + tuple(a.shape[1:]))
+
+    res = solve_batched(nlp, cfg, tree_map(flat, data),
+                        z0s.reshape(M * n, -1))
+    res = tree_map(lambda a: a.reshape((M, n) + tuple(a.shape[1:])), res)
+    best = select_best(res, cfg, nlp.maximize)
+    lanes = torch.arange(M, device=best.device)
+    return tree_map(lambda a: a[lanes, best], res)
+
+
+def solve_multistart(
+    nlp: NLP,
+    cfg: SolverConfig,
+    data: VGPData,
+    n_starts: int = 8,
+    generator: Optional[torch.Generator] = None,
+    spread: float = 0.4,
+    shooting_samples: int = 0,
+    deltas: Optional[torch.Tensor] = None,
+) -> SolveResult:
+    """Solve ONE problem (``data`` without a lane axis) from ``n_starts``
+    initial guesses at once and keep the best feasible result.
+
+    The batch axis is the global search that stands in for the MILP
+    backends' branch-and-bound: nonconvex obstacle fields have several
+    basins (pass above or below), and AL from an infeasible guess is
+    knife-edge sensitive to which basin it drains into. Guesses: the
+    nominal one, smooth half-sine state bumps, and (``shooting_samples >
+    0``) the best collision-free randomized rollout
+    (:mod:`.shooting`). The starts are one flat batch of
+    :func:`solve_batched`.
+
+    The bumps come from ``generator`` through :func:`draw_deltas`, then
+    the shooting units. With no generator the draws are made on the host
+    from seed 0, so the starts are the same on every device. Which
+    starts converge is luck of the draw on a field like
+    ``mip_2d_ex1.xml`` (about one start in five does). ``deltas``
+    [n_starts, nx] hands the bumps in instead (a test gives both
+    packages the same ones)."""
+    dev, dtype = data.x0.device, data.x0.dtype
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if deltas is None:
+        deltas = draw_deltas(n_starts, nlp.dims.nx, spread, generator, dev,
+                             dtype)
+    lanes1 = tree_map(lambda a: a[None], data)
+    z_shoot = None
+    if shooting_samples > 0:
+        z_shoot = shooting.plan_guess(nlp, lanes1, shooting_samples,
+                                      generator)
+    res = _multistart_lanes(nlp, cfg, lanes1, deltas[None], z_shoot)
+    return tree_map(lambda a: a[0], res)
+
+
+def rescue_merge(res1: SolveResult, res2: SolveResult, idx) -> SolveResult:
+    """Scatter the rescue results ``res2`` (of lanes ``idx`` of ``res1``)
+    back where they are strictly better: solved where phase 1 was not,
+    or, both unsolved, a lower violation."""
+    ok1 = (res1.status == int(Status.SOLVED))[idx]
+    ok2 = res2.status == int(Status.SOLVED)
+    v1 = torch.maximum(res1.viol_eq[idx], res1.viol_in[idx])
+    v2 = torch.maximum(res2.viol_eq, res2.viol_in)
+    better = (ok2 & ~ok1) | (~ok2 & ~ok1 & (v2 < v1))
+    return tree_map(
+        lambda a, b: a.index_copy(0, idx, _sel(better, b, a[idx])),
+        res1, res2)
+
+
+def solve_batched_rescue(
+    nlp: NLP,
+    cfg: SolverConfig,
+    data: VGPData,
+    generator: Optional[torch.Generator] = None,
+    rescue_lanes: int = 0,
+    n_rescue_starts: int = 4,
+    rescue_cfg: Optional[SolverConfig] = None,
+    z0: Optional[torch.Tensor] = None,
+    shooting_samples: int = 256,
+    lam0=None,
+    rho0: Optional[torch.Tensor] = None,
+) -> SolveResult:
+    """Two-phase batched solve: main phase + compacted rescue.
+
+    Phase 1 runs the whole batch under ``cfg`` (use a tight
+    ``cfg.max_total``); the ``rescue_lanes`` (default B // 8) worst
+    lanes, unconverged first in stable order, are gathered into a small
+    batch and re-solved cold with ``n_rescue_starts``-way multistart and
+    shooting seeds under ``rescue_cfg``: ONE flat batch of
+    ``rescue_lanes · n_rescue_starts`` lanes. Improved results scatter
+    back (:func:`rescue_merge`); lanes beyond ``rescue_lanes`` that also
+    failed keep their phase-1 status (an honest MAX_ITER). Use
+    :func:`solve_batched_staged` when failures are budget problems, this
+    when they are basin problems.
+
+    When every lane of phase 1 is SOLVED, phase 2 is skipped: no rescue
+    result could be adopted, so the result is the same (the JAX package
+    runs its fixed-shape phase 2 regardless).
+
+    Draws, in order, from ``generator`` (made on the host from seed 0
+    when none is given): the bumps [M, n_rescue_starts, nx], then the
+    shooting units with a lane axis (every rescued lane has draws of its
+    own)."""
+    res1 = solve_batched(nlp, cfg, data, z0, lam0, rho0)
+    ok = res1.status == int(Status.SOLVED)
+    if bool(ok.all()):
+        return res1
+    B = res1.status.shape[0]
+    M = min(rescue_lanes or max(1, B // 8), B)
+    dev, dtype = data.x0.device, data.x0.dtype
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    idx = torch.argsort(ok.to(torch.int32), stable=True)[:M]
+    sub = tree_map(lambda a: a[idx], data)
+    deltas = draw_deltas(n_rescue_starts, nlp.dims.nx, 0.4, generator, dev,
+                         dtype, lanes=M)
+    z_shoot = None
+    if shooting_samples > 0:
+        z_shoot = shooting.plan_guess(nlp, sub, shooting_samples, generator,
+                                      per_lane=True)
+    res2 = _multistart_lanes(nlp, rescue_cfg or cfg, sub, deltas, z_shoot)
+    return rescue_merge(res1, res2, idx)
 
 
 def solve_batched_staged(

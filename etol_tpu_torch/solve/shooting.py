@@ -139,14 +139,22 @@ def _score_rollouts(dynamics: Callable, data: VGPData, U,
 
 
 def draw_units(n_samples: int, nsteps: int, nu: int, pulled: int,
-               n_cand: int, generator: torch.Generator, device, dtype):
+               n_cand: int, generator: torch.Generator, device, dtype,
+               lanes: Optional[int] = None):
     """The unit draws of one :func:`plan` call, shared by every lane:
     (base_u [S, 1, nu], step_u [S, N, nu], cand_u [P, N, C, nu] or None,
     jitter [P, N, C] or None) — uniforms in [0, 1) and, for the jitter,
-    standard normals."""
+    standard normals. With ``lanes`` every tensor gets that leading axis:
+    draws of its own for each lane (``per_lane`` of
+    :func:`plan_from_units`). The draws are made on the generator's own
+    device and handed to ``device``: a CPU generator gives one seed the
+    same draws whatever device the problem lies on."""
+    lead = () if lanes is None else (lanes,)
+
     def draw(*shape, normal=False):
         f = torch.randn if normal else torch.rand
-        return f(shape, generator=generator, device=device, dtype=dtype)
+        return f(lead + shape, generator=generator,
+                 device=generator.device, dtype=dtype).to(device)
 
     base_u = draw(n_samples, 1, nu)
     step_u = draw(n_samples, nsteps, nu)
@@ -159,15 +167,22 @@ def draw_units(n_samples: int, nsteps: int, nu: int, pulled: int,
 
 def plan_from_units(dynamics: Callable, data: VGPData, base_u, step_u,
                     cand_u=None, jitter=None, goal_weight: float = 10.0,
-                    effort_weight: float = 0.1):
+                    effort_weight: float = 0.1, per_lane: bool = False):
     """The deterministic part of :func:`plan`: every lane of ``data``
-    scales the same unit draws by its own bounds, rolls them out and keeps
-    its best. Returns (X [B, K, nx], U_nodes [B, K, nu], info)."""
-    U = map_lanes(lambda d: _walk_controls(d, base_u, step_u), data)
+    scales the same unit draws by its own bounds (``per_lane``: its own
+    draws, the tensors then carry the lane axis first), rolls them out
+    and keeps its best. Returns (X [B, K, nx], U_nodes [B, K, nu],
+    info)."""
+    if not per_lane:  # shared draws: a view with the lane axis
+        B = data.x0.shape[0]
+        base_u, step_u, cand_u, jitter = (
+            None if u is None else u.expand((B,) + tuple(u.shape))
+            for u in (base_u, step_u, cand_u, jitter))
+    U = map_lanes(_walk_controls, data, base_u, step_u)
     if cand_u is not None:
         Up = map_lanes(
-            lambda d: _pulled_controls(dynamics, d, cand_u, jitter), data
-        )
+            lambda d, c, j: _pulled_controls(dynamics, d, c, j),
+            data, cand_u, jitter)
         U = torch.cat([U, Up], dim=1)                      # [B, S, N, nu]
     scores, Xs = map_lanes(
         lambda d, Ul: _score_rollouts(dynamics, d, Ul, goal_weight,
@@ -196,26 +211,34 @@ def plan(
     pulled: int = 0,
     n_cand: int = 8,
     effort_weight: float = 0.1,
+    per_lane: bool = False,
 ):
     """Best rollout per lane among ``n_samples`` random walks plus
     ``pulled`` goal-pulled greedy rollouts. ``data`` is a batch (lane
-    axis first). Returns (X [B, K, nx], U_nodes [B, K, nu], info):
+    axis first); ``per_lane`` gives every lane draws of its own instead
+    of one shared set. Returns (X [B, K, nx], U_nodes [B, K, nu], info):
     U_nodes repeats the step controls onto nodes so the result packs
     into a collocation decision vector."""
     dev, dtype = data.x0.device, data.x0.dtype
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     units = draw_units(n_samples, nsteps, data.u_lb.shape[-1], pulled,
-                       n_cand, generator, dev, dtype)
+                       n_cand, generator, dev, dtype,
+                       lanes=data.x0.shape[0] if per_lane else None)
     return plan_from_units(dynamics, data, *units, goal_weight=goal_weight,
-                           effort_weight=effort_weight)
+                           effort_weight=effort_weight, per_lane=per_lane)
 
 
 def plan_guess(nlp: NLP, data: VGPData, n_samples: int = 4096,
                generator: Optional[torch.Generator] = None,
-               pulled: int = 0, n_cand: int = 8):
+               pulled: int = 0, n_cand: int = 8, per_lane: bool = False):
     """Shooting-based initial guess per lane: the best collision-free
-    rollout packed as a decision vector, z [B, nz]."""
+    rollout packed as a decision vector, z [B, nz] (param columns
+    zero)."""
     X, U, _ = plan(nlp.dynamics, nlp.dims.nsteps, data, n_samples,
-                   generator, pulled=pulled, n_cand=n_cand)
-    return torch.cat([X, U], dim=-1).reshape(X.shape[0], -1)
+                   generator, pulled=pulled, n_cand=n_cand,
+                   per_lane=per_lane)
+    parts = [X, U]
+    if nlp.dims.n_params:
+        parts.append(X.new_zeros(X.shape[:2] + (nlp.dims.n_params,)))
+    return torch.cat(parts, dim=-1).reshape(X.shape[0], -1)

@@ -242,8 +242,10 @@ def test_run_config_warns_when_lanes_are_left_unsolved(capsys):
     label, nlp, bdata, cfg, _, _, gen = bench_scaling.prepare(
         "pm20", "cpu", batch=4)
     cfg = dataclasses.replace(cfg, max_total=1)
-    out = bench_scaling.run_config(label, nlp, bdata, cfg, (), reps=1,
+    # reps=0: the first run is the timed one
+    out = bench_scaling.run_config(label, nlp, bdata, cfg, (), reps=0,
                                    generator=gen, log=lambda line: None)
     assert out["solved_fraction"] == 0.0 and out["solves_per_s"] == 0.0
+    assert out["batch_s"] == out["first_s"] > 0
     err = capsys.readouterr().err
     assert "LADDER UNHEALTHY" in err and "solved fraction 0.000" in err

@@ -42,12 +42,13 @@ def test_port_imports_no_jax():
 
 # every module of the port; a new module is added here with its slice
 MODULES = [
-    "__init__", "bench_harness", "bench_scaling",
+    "__init__", "bench_harness", "bench_scaling", "cli", "optimizer",
     "core/__init__", "core/_native", "core/device", "core/geometry",
-    "core/problem", "core/trajectory", "core/types",
+    "core/problem", "core/trajectory", "core/types", "core/xml_io",
     "models/__init__", "models/dynamics", "models/problems", "models/tuned",
     "ops/__init__", "ops/bt_cuda", "ops/cyclic_reduction",
-    "solve/__init__", "solve/al_sqp", "solve/btridiag", "solve/shooting",
+    "solve/__init__", "solve/al_sqp", "solve/btridiag", "solve/options",
+    "solve/planners", "solve/refine", "solve/shooting",
     "transcribe/__init__", "transcribe/collocation", "transcribe/nlp",
     "transcribe/obstacles",
 ]
@@ -73,6 +74,17 @@ def test_module_imports_torch_side_only(module):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.ImportFrom):
             assert node.level <= depth, (module, node.module, node.level)
+
+
+def test_shipped_configs_are_the_references_bytes():
+    """The port keeps its own copies of the shipped XML problems (it
+    reads nothing of the JAX package), and they are the same files."""
+    ours = sorted((PORT / "configs").glob("*.xml"))
+    theirs = sorted((PORT.parent / "etol_tpu" / "configs").glob("*.xml"))
+    assert [f.name for f in ours] == [f.name for f in theirs]
+    assert len(ours) == 2
+    for a, b in zip(ours, theirs):
+        assert a.read_bytes() == b.read_bytes(), a.name
 
 
 def test_cpu_main_path_runs():

@@ -53,8 +53,8 @@ def _configs():
     for f in dataclasses.fields(tcfg):
         if f.name != "kkt_solver":
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
-    # what the port has as its only path, the JAX config selects
-    assert (jcfg.hessian, jcfg.lm_rule) == ("defect", "ratio")
+    # what the port has as its only Levenberg rule, the JAX config selects
+    assert (jcfg.hessian, jcfg.lm_rule) == (tcfg.hessian, "ratio")
     jstages = tuple((max(B // dv, 1), bd) for dv, bd in stages)
     assert tstages == jstages
     return jcfg, tcfg, jstages
@@ -179,10 +179,14 @@ def test_unported_config_raises():
         tal.SolverConfig(kkt_solver="pallas")
     with pytest.raises(ValueError):
         tal.SolverConfig(chord_steps=-1)
-    for knob in ("hessian", "lm_rule", "ls_eta", "ls_rule", "dual_relax",
+    for knob in ("lm_rule", "ls_eta", "ls_rule", "dual_relax",
                  "ls_deep_round", "ls_exponents", "ls_backtracks"):
         with pytest.raises(TypeError):
             tal.SolverConfig(**{knob: 1})
+    # the Hessian variants exist; anything else is refused
+    assert tal.SolverConfig(hessian="gn").hessian == "gn"
+    with pytest.raises(ValueError):
+        tal.SolverConfig(hessian=1)
 
 
 @pytest.mark.parametrize("kkt", ["scan", "cr"])
@@ -223,18 +227,49 @@ def test_unbatched_solve_matches(kkt):
     np.testing.assert_allclose(float(tw.obj), float(jw.obj), rtol=1e-3)
 
 
-def test_unbatched_solve_under_kernel_takes_cyclic_reduction(monkeypatch):
+@pytest.mark.parametrize("kkt", ["kernel", "cr"])
+def test_unbatched_solve_route_is_the_configs(monkeypatch, kkt):
+    """Under "kernel" the unbatched solve calls the kernel's wrapper once
+    a KKT solve (a batch of one) and never cyclic reduction; under "cr"
+    the reverse."""
     _, tnlp = tproblems.uas_2d(**KW)
     tnlp = dataclasses.replace(tnlp, obstacle_form="pieces")
     tdata, _ = tproblems.uas_2d(**KW)[0].to_device(device="cpu")
     cfg = dataclasses.replace(ttuned.tuned_config("uas_2d")[0], max_total=12)
     assert cfg.kkt_solver == "kernel"
+    cfg = dataclasses.replace(cfg, kkt_solver=kkt)
+    calls = {"kernel": [], "cr": []}
+    wrapper, cr = tal.bt_cuda.solve, tal.cyclic_reduction.solve_refined
 
-    def no_kernel(*a, **kw):
-        raise AssertionError("the unbatched solve called the kernel")
+    def counted(route, fn):
+        def call(D, O, r):
+            calls[route].append(tuple(D.shape))
+            return fn(D, O, r)
+        return call
 
-    monkeypatch.setattr(tal.bt_cuda, "solve", no_kernel)
+    monkeypatch.setattr(tal.bt_cuda, "solve", counted("kernel", wrapper))
+    monkeypatch.setattr(tal.cyclic_reduction, "solve_refined",
+                        counted("cr", cr))
     res = tal.solve(tnlp, cfg, tdata)
-    ref = tal.solve(tnlp, dataclasses.replace(cfg, kkt_solver="cr"), tdata)
-    assert torch.equal(res.z, ref.z)
     assert int(res.inner_iters) == 12
+    other = "cr" if kkt == "kernel" else "kernel"
+    assert calls[kkt] == [(1, 13, 5, 5)] * 12 and calls[other] == []
+
+
+def test_float64_and_wide_nodes_route_to_cyclic_reduction():
+    """The route comes from the dtype and the width up front: the
+    kernel's wrapper takes float32 nodes up to 9 wide and is not asked
+    for anything else."""
+    vgp, tnlp = tproblems.uas_2d(**KW)
+    cfg = ttuned.tuned_config("uas_2d")[0]
+    for dtype, want in ((torch.float32, "kernel"), (torch.float64, "cr")):
+        data, _ = vgp.to_device(dtype=dtype, device="cpu")
+        F = tal._ALFuncs(tnlp, cfg, tproblem.batch_tile(data, 2))
+        assert F.kkt == want
+        for name in ("scan", "cr"):
+            assert tal._ALFuncs(
+                tnlp, dataclasses.replace(cfg, kkt_solver=name),
+                tproblem.batch_tile(data, 2)).kkt == name
+    data, _ = vgp.to_device(dtype=torch.float64, device="cpu")
+    res = tal.solve(tnlp, dataclasses.replace(cfg, max_total=2), data)
+    assert res.z.dtype == torch.float64 and int(res.inner_iters) == 2

@@ -148,9 +148,15 @@ def test_bounds_and_scales():
 
 
 def test_unported_options_raise():
-    _, tnlp = tproblems.uas_2d(nsteps=4)
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tnlp, x_delay=1)
+    # delays are ported for euler and trapezoidal; a delayed
+    # Hermite-Simpson defect raises the reference's ValueError
+    vgp, tnlp = tproblems.uas_2d(nsteps=4)
+    delayed = dataclasses.replace(
+        tnlp, x_delay=1, dynamics=lambda xw, uw, t, d: xw[0])
+    assert delayed.delay == 1 and tnlp.delay == 0
+    data, _ = vgp.to_device(device="cpu")
+    with pytest.raises(ValueError, match="does not support delayed"):
+        delayed.pair_defect(torch.zeros(3, 5), torch.tensor(0), data)
     assert tcol.SCHEMES == jcol.SCHEMES
     with pytest.raises(ValueError, match="unknown scheme"):
         tcol.step_defect(tdyn.unicycle, *([torch.zeros(3)] * 4), 0.0, 0.1,
