@@ -67,7 +67,15 @@ result line:
              cold with a rescue of 512 lanes and warm, a small fleet whose
              tight budget forces the rescue phase, and the CLI's
              ``solve_ocp`` and ``mpc_demo 5`` in-process; one JSON line of
-             its findings.
+             its findings;
+11. exact  — the exact MILP path: ``side_branch.solve_exact`` on
+             ``mip_2d_ex1.xml`` with ``convex_relaxation=True`` under
+             ``kkt_solver="kernel"`` (every Newton trip of every wave one
+             launch at (17, 6, 8)) and under ``"cr"`` (no launch), and the
+             facade's ``solve_exact`` on the composed demo (a BINARY boost
+             and an obstacle, wave 8; launches at (7, 5, 8)), with
+             ``get_xtraj`` and ``save``; nodes, waves, trips, launches and
+             seconds of each, and one JSON line of its findings.
 
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py
@@ -104,7 +112,24 @@ FACADE_SHAPES = ((33, 4, 1), (33, 4, 8), (33, 4, FACADE_B),
                  (33, 4, FACADE_B // 2), (17, 6, 8))
 FORCED_SHAPES = ((33, 4, FORCED_B), (33, 4, FORCED_LANES * 4))
 B1_SHAPE = (51, 5, 1)
-TIMED_SHAPES = MAIN_SHAPES + LADDER_SHAPES + FACADE_SHAPES + (B1_SHAPE,)
+# the exact path: a wave of EXACT_WAVE nodes is one batched solve, so
+# mip_2d_ex1.xml launches at (17, 6, 8) (a facade shape already) and the
+# composed demo (K=7, w=5: two states, two controls, the boost) at (7, 5, 8)
+EXACT_WAVE, EXACT_MAX_NODES = 8, 384
+EXACT_SHAPES = ((17, 6, EXACT_WAVE), (7, 5, EXACT_WAVE))
+# the golden's objective for mip_2d_ex1.xml (tests/golden/mip_2d_ex1.csv),
+# the composed demo's certified optimum, and how close a certified search
+# is held to them: for the MIP the JAX package's own limit for its exact
+# search against HiGHS's certified optimum (tests/test_golden.py, random
+# instances; a SOLVED node is feasible only to tol_cons, and this MIP's
+# closing relaxations spread over 11.954-11.963 with their warm starts),
+# 1e-3 for the composed demo; the two KKT routes' MIP objectives are held
+# within MIP_ROUTE_TOL of each other (9.3e-5 apart on an H100, 1.5e-3 when
+# the same script's exact phase runs on a CPU)
+MIP_GOLDEN, COMPOSED_OPT = 11.96, 8.44876
+MIP_TOL, COMPOSED_TOL, MIP_ROUTE_TOL = 7e-3, 1e-3, 2e-3
+TIMED_SHAPES = (MAIN_SHAPES + LADDER_SHAPES + FACADE_SHAPES + (B1_SHAPE,)
+                + tuple(s for s in EXACT_SHAPES if s not in FACADE_SHAPES))
 # batches that are no multiple of the lanes a block takes
 RAGGED_SHAPES = ((51, 5, 3), (41, 6, 7), (21, 6, 1000))
 TIMED_SET_BYTES = 100 * 2 ** 20
@@ -134,7 +159,8 @@ MPC_CR_STEPS = 10
 # phase 9, fw100's warm A/B: the starts move by this much (km; the ladder
 # scatters them within 0.05), and a re-solve gets this many iterations
 WARM_DRIFT, WARM_BUDGET = 0.005, 60
-PHASES = ("kernel", "main", "a/b", "cr", "mpc", "bench", "ladder", "facade")
+PHASES = ("kernel", "main", "a/b", "cr", "mpc", "bench", "ladder", "facade",
+          "exact")
 
 CARD = None
 
@@ -273,9 +299,10 @@ def path_shapes(bench_scaling):
             for b in [B] + [min(cap, B) for cap, _ in stages]:
                 if (K, w, b) not in shapes:
                     shapes.append((K, w, b))
-    return shapes + [shape for shape in
-                     (B1_SHAPE,) + FACADE_SHAPES + FORCED_SHAPES
-                     if shape not in shapes]
+    for shape in (B1_SHAPE,) + FACADE_SHAPES + FORCED_SHAPES + EXACT_SHAPES:
+        if shape not in shapes:
+            shapes.append(shape)
+    return shapes
 
 
 def assert_checked(path, launches_by):
@@ -922,6 +949,114 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
     return out
 
 
+def check_exact(torch, bt_cuda, cyclic_reduction):
+    """Phase 11: the exact MILP path on the default device; returns its
+    findings. Every step raises on a miss."""
+    import tempfile
+
+    import numpy as np
+
+    from etol_tpu_torch import TrajectoryOptimizer
+    from etol_tpu_torch.core import trajectory
+    from etol_tpu_torch.core.types import Status
+    from etol_tpu_torch.models import problems
+    from etol_tpu_torch.solve import al_sqp, side_branch
+
+    SOLVED = int(Status.SOLVED)
+    out = {}
+
+    def counts(path):
+        by = dict(bt_cuda.LAUNCHES_BY)
+        assert_checked(f"exact {path}", by)
+        return bt_cuda.LAUNCHES, by, cyclic_reduction.SOLVES
+
+    def found(mres, seconds, launches, by, cr_solves):
+        return dict(obj=mres.obj, status=mres.status,
+                    certified=mres.certified, nodes=mres.nodes_solved,
+                    waves=mres.waves, trips=mres.trips, launches=launches,
+                    launches_by={"K%d_w%d_B%d" % key[1:]: n
+                                 for key, n in sorted(by.items())},
+                    cr_solves=cr_solves, seconds=seconds)
+
+    # -- mip_2d_ex1.xml, convex, under both KKT routes
+    vgp, nlp = problems.canonical_mip_2d()
+    data, _ = vgp.to_device()
+    for route in ("kernel", "cr"):
+        reset_counts(bt_cuda, cyclic_reduction)
+        t0 = time.perf_counter()
+        mres = side_branch.solve_exact(
+            nlp, al_sqp.SolverConfig(kkt_solver=route), data,
+            wave=EXACT_WAVE, convex_relaxation=True)
+        seconds = time.perf_counter() - t0
+        launches, by, cr_solves = counts(f"mip ({route})")
+        f = found(mres, seconds, launches, by, cr_solves)
+        say("exact", f"solve_exact(canonical_mip_2d, convex), kkt_solver="
+                     f"{route}: {Status(mres.status).name}, certified "
+                     f"{mres.certified}, objective {mres.obj:.6f} (golden "
+                     f"{MIP_GOLDEN}, limit {MIP_TOL}), {mres.nodes_solved}"
+                     f" nodes in {mres.waves} waves, {mres.trips} trips, "
+                     f"{seconds:.2f} s; {launches} kernel launches "
+                     f"{f['launches_by']}, {cr_solves} cyclic-reduction "
+                     f"solves")
+        if mres.status != SOLVED or not mres.certified or not abs(
+                mres.obj - MIP_GOLDEN) <= MIP_TOL:
+            raise AssertionError(f"exact mip under {route}: {f}")
+        want = ((mres.trips, 0) if route == "kernel" else (0, mres.trips))
+        if (launches, cr_solves) != want or (
+                by and set(by) != {("smem",) + EXACT_SHAPES[0]}):
+            raise AssertionError(
+                f"exact mip under {route}: {launches} launches {by} and "
+                f"{cr_solves} cyclic-reduction solves for {mres.trips} trips")
+        out[f"mip_{route}"] = f
+    gap = abs(out["mip_kernel"]["obj"] - out["mip_cr"]["obj"])
+    say("exact", f"the two routes' objectives differ by {gap:.3e} (limit "
+                 f"{MIP_ROUTE_TOL})")
+    if not gap <= MIP_ROUTE_TOL:
+        raise AssertionError("the exact MIP differs between KKT routes")
+
+    # -- the composed demo through the facade
+    vgp, nlp = problems.composed_exact_demo()
+    topt = TrajectoryOptimizer()
+    topt.vgp, topt.nlp = vgp, nlp
+    topt.data, topt.dims = vgp.to_device()
+    reset_counts(bt_cuda, cyclic_reduction)
+    mres = topt.solve_exact(wave=EXACT_WAVE, max_nodes=EXACT_MAX_NODES,
+                            convex_relaxation=True)
+    launches, by, cr_solves = counts("composed")
+    f = found(mres, topt.last_solve_seconds, launches, by, cr_solves)
+    times, X = topt.get_xtraj()
+    Z = topt.result.z.reshape(topt.dims.nodes, -1).cpu().numpy()
+    boost = Z[1:, 4]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = topt.save((times, X), os.path.join(tmp, "state.csv"))
+        _, X_back = trajectory.load_csv(path)
+    say("exact", f"facade solve_exact(composed_exact_demo, wave "
+                 f"{EXACT_WAVE}, max_nodes {EXACT_MAX_NODES}, convex): "
+                 f"{topt.get_status().name}, certified {mres.certified}, "
+                 f"score {topt.get_score():.6f} (limit {COMPOSED_OPT} +- "
+                 f"{COMPOSED_TOL}), boost schedule "
+                 f"{np.round(boost, 4).tolist()}, xN {X[-1].tolist()}; "
+                 f"{mres.nodes_solved} nodes in {mres.waves} waves, "
+                 f"{mres.trips} trips, {topt.last_solve_seconds:.2f} s; "
+                 f"{launches} kernel launches {f['launches_by']}")
+    if topt.get_status() != Status.SOLVED or not mres.certified or not abs(
+            topt.get_score() - COMPOSED_OPT) <= COMPOSED_TOL:
+        raise AssertionError(f"exact composed: {f}")
+    if not (np.abs(boost - np.round(boost)).max() < 2e-3
+            and np.round(boost).max() == 1):
+        raise AssertionError(f"the boost schedule {boost} is not an "
+                             "integral one that switches on")
+    if X.device.type != "cuda" or tuple(X_back.shape) != (7, 2) or float(
+            (X_back - X.cpu().double()).abs().max()) > 1e-6:
+        raise AssertionError("the composed demo's trajectory does not "
+                             "save and read back from the card")
+    if launches != mres.trips or set(by) != {("smem",) + EXACT_SHAPES[1]}:
+        raise AssertionError(f"exact composed: {launches} launches {by} "
+                             f"for {mres.trips} trips")
+    out["composed"] = f
+    return out
+
+
 def main(phases=PHASES):
     """Phases 1 and 2, then the named ones in order; the two result lines
     are printed only when every phase ran."""
@@ -1039,6 +1174,13 @@ def main(phases=PHASES):
               flush=True)
         clock.lap("facade")
 
+    # 11. the exact MILP path; its JSON line goes out before the last two
+    if "exact" in phases:
+        exact = check_exact(torch, bt_cuda, cyclic_reduction)
+        print(json.dumps({"phase": "exact", "card": CARD, **exact}),
+              flush=True)
+        clock.lap("exact")
+
     if tuple(phases) != PHASES:
         return
     print(CARD, flush=True)
@@ -1067,7 +1209,10 @@ def main(phases=PHASES):
             "facade_multistart_ocp": facade["multistart_ocp"]["launches"],
             "facade_multistart_mip": facade["multistart_mip"]["launches"],
             "facade_fleet_cold": facade["fleet"]["cold"]["launches"],
-            "facade_fleet_warm": facade["fleet"]["warm"]["launches"]},
+            "facade_fleet_warm": facade["fleet"]["warm"]["launches"],
+            "exact_mip": exact["mip_kernel"]["launches"],
+            "exact_mip_cr": exact["mip_cr"]["launches"],
+            "exact_composed": exact["composed"]["launches"]},
         "max_abs_err": max_abs_err,
         "ms": top["smem"],
         "ms_global_scratch": top["global"],

@@ -3,7 +3,8 @@
 The JAX package ``etol_tpu`` stays the reference; this package runs the
 library's entry point, the :class:`TrajectoryOptimizer` facade over the
 shipped XML problems (solve, multistart, the fleet call with its rescue
-phase, the MPC step), and the bench's main path (batched ``uas_2d``
+phase, the MPC step, the certified branch-and-bound of ``solve_exact``),
+and the bench's main path (batched ``uas_2d``
 problems: shooting seeds, the staged AL-SQP solve, the obstacle audit
 and the warm fleet re-solve) on an NVIDIA H100, with the
 block-tridiagonal KKT solve as a hand-written CUDA kernel

@@ -6,14 +6,14 @@ the same acceptance surface for the port. Each one loads a canonical
 config, solves, and prints the score:
 
     python -m etol_tpu_torch.cli solve_ocp [config.xml] [--device cpu]
-    python -m etol_tpu_torch.cli solve_mip [config.xml] [--device cpu]
+    python -m etol_tpu_torch.cli solve_mip [config.xml] [--exact] [--device cpu]
+    python -m etol_tpu_torch.cli solve_exact_composed [--device cpu]
     python -m etol_tpu_torch.cli solve_3d [--device cpu]
     python -m etol_tpu_torch.cli mpc_demo [steps] [--device cpu]
 
 Every function takes ``argv`` (defaulting to ``sys.argv[1:]``), so a
 harness or a test can drive it in-process, and runs on the card unless
 ``--device`` says otherwise (an error where there is none). Not here:
-``solve_mip --exact`` (the branch-and-bound, ROADMAP Queue 1, item 15),
 the plots of ``solve_3d``, ``fleet_batch`` and ``bench`` (the port's
 bench is ``python -m etol_tpu_torch.bench_harness``).
 """
@@ -61,13 +61,13 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _solved(res) -> int:
-    """The process exit code of a result: 0 when SOLVED."""
-    return 0 if int(res.status) == int(Status.SOLVED) else 1
+def _solved(status) -> int:
+    """The process exit code of a status: 0 when SOLVED."""
+    return 0 if int(status) == int(Status.SOLVED) else 1
 
 
-def _save_trajectories(nlp, res, dims, dt, stem: str) -> None:
-    X, U = nlp.unpack(res.z)
+def _save_trajectories(nlp, z, dims, dt, stem: str) -> None:
+    X, U = nlp.unpack(z)
     ts = np.arange(dims.nodes) * dt
     fx = trajectory.save((ts, X), f"state_{stem}.csv")
     fu = trajectory.save((ts, U), f"control_{stem}.csv")
@@ -102,23 +102,26 @@ def solve_ocp(argv: Optional[Sequence[str]] = None) -> int:
           f"{int(res.inner_iters)}")
     print(f"Solve time: first={times[0]:.2f}s (incl. first-use costs) "
           f"second={times[1]:.2f}s on {device}")
-    _save_trajectories(nlp, res, dims, vgp.dt, "etol_tpu_torch")
+    _save_trajectories(nlp, res.z, dims, vgp.dt, "etol_tpu_torch")
     print("x0 =", X[0].cpu().numpy(), " xN =", X[-1].cpu().numpy(),
           " goal =", data.xf.cpu().numpy())
-    return _solved(res)
+    return _solved(res.status)
 
 
 def solve_mip(argv: Optional[Sequence[str]] = None) -> int:
-    """Canonical MILP VGP (mip_2d_ex1.xml) — etol_glpk_example1 analog,
-    on the smooth multistart path (8 starts, drawn on the host from
-    ``MIP_SEED``). ``--exact`` (the branch-and-bound that matches the
-    reference's big-M optimum) is not ported yet."""
+    """Canonical MILP VGP (mip_2d_ex1.xml) — etol_glpk_example1 analog.
+
+    Default: the smooth multistart path (8 starts, drawn on the host from
+    ``MIP_SEED``; the conservative obstacle inflation lands on the ~12.1
+    or ~14 route). With ``--exact``: the escape-side branch-and-bound
+    (:mod:`.solve.side_branch`) that matches the reference's big-M
+    optimum ~12, under the search's own defaults (bound pruning is
+    auto-detected, and this field's L1 epigraph rows are user path
+    inequalities, so it is off and the result is uncertified, as in the
+    JAX package). The exit code is 0 when the status is SOLVED."""
     argv, device = _args(argv)
-    if "--exact" in argv:
-        raise SystemExit(
-            "solve_mip --exact is not ported to etol_tpu_torch yet "
-            "(ROADMAP Queue 1, item 15: the side-branching "
-            "branch-and-bound); run without it for the smooth path")
+    exact = "--exact" in argv
+    argv = [a for a in argv if a != "--exact"]
     from .models.problems import canonical_mip_2d
     from .solve.al_sqp import SolverConfig, solve_multistart
 
@@ -127,19 +130,80 @@ def solve_mip(argv: Optional[Sequence[str]] = None) -> int:
     data, dims = vgp.to_device(device=device)
 
     t0 = time.time()
-    res = solve_multistart(nlp, SolverConfig(), data, 8,
-                           torch.Generator().manual_seed(MIP_SEED))
-    _sync(device)
+    if exact:
+        from .solve import side_branch
+        from .solve.branch_bound import integer_mask
+
+        icols = integer_mask(vgp)
+        mres = side_branch.solve_exact(
+            nlp, SolverConfig(), data, verbose=True,
+            int_cols=icols if icols.any() else None,
+        )
+        print(f"[exact] obj={mres.obj:.6f} bound={mres.best_bound:.6f} "
+              f"gap={mres.gap:.2e} nodes={mres.nodes_solved} "
+              f"waves={mres.waves} trips={mres.trips} "
+              f"certified={mres.certified}")
+        z = torch.as_tensor(mres.z, device=device)
+        obj, status, viol = mres.obj, int(mres.status), (0.0, 0.0)
+    else:
+        res = solve_multistart(nlp, SolverConfig(), data, 8,
+                               torch.Generator().manual_seed(MIP_SEED))
+        _sync(device)
+        z, obj, status = res.z, float(res.obj), int(res.status)
+        viol = (float(res.viol_eq), float(res.viol_in))
 
     print("\n!!!!!!!!!!!!!!!!!Results!!!!!!!!!!!!!!!!!")
-    print(f"Status:\t\t\t{Status(int(res.status)).name}")
-    print(f"Minimization Score:\t{float(res.obj):.6f}")
-    print(f"Constraint viol:\t{float(res.viol_eq):.2e} "
-          f"{float(res.viol_in):.2e}")
+    print(f"Status:\t\t\t{Status(status).name}")
+    print(f"Minimization Score:\t{obj:.6f}")
+    print(f"Constraint viol:\t{viol[0]:.2e} {viol[1]:.2e}")
     print(f"Solve time (incl. first-use costs): {time.time()-t0:.1f}s "
           f"on {device}")
-    _save_trajectories(nlp, res, dims, vgp.dt, "mip_etol_tpu_torch")
-    return _solved(res)
+    _save_trajectories(nlp, z, dims, vgp.dt, "mip_etol_tpu_torch")
+    return _solved(status)
+
+
+def solve_exact_composed(argv: Optional[Sequence[str]] = None) -> int:
+    """Composed exact MILP: a BINARY param AND an obstacle disjunction
+    resolved by ONE certified branch-and-bound tree — the analog of the
+    reference's GLPK example holding per-window binary variables and
+    per-edge obstacle binaries in a single model
+    (etol_glpk_example1.cpp:160-276). A binary 'boost' gates the speed
+    limit (|u| <= 0.35 + 1.15 b, at cost 0.4 b per active step); the
+    horizon is too short to reach the goal at base speed, and a square
+    zone blocks the straight line, so the search must both switch the
+    boost on and pick an escape side. Exit code 0 when SOLVED and
+    certified."""
+    argv, device = _args(argv)
+    from .models.problems import composed_exact_demo
+    from .solve import side_branch
+    from .solve.al_sqp import SolverConfig
+    from .solve.branch_bound import integer_mask
+
+    vgp, nlp = composed_exact_demo()
+    vgp.print_configs()
+    data, dims = vgp.to_device(device=device)
+    t0 = time.time()
+    res = side_branch.solve_exact(
+        nlp, SolverConfig(), data,
+        int_cols=integer_mask(vgp),
+        wave=8, max_nodes=384,
+        convex_relaxation=True,
+        verbose=True,
+    )
+    Z = res.z.reshape(dims.nodes, dims.node_width)
+    print("\n!!!!!!!!!!!!!!!!!Results!!!!!!!!!!!!!!!!!")
+    print(f"Status:\t\t\t{Status(int(res.status)).name} "
+          f"(certified={res.certified})")
+    print(f"Minimization Score:\t{res.obj:.6f}  bound "
+          f"{res.best_bound:.6f}  gap {res.gap:.2e}")
+    print(f"Nodes / waves / trips:\t{res.nodes_solved} / {res.waves} / "
+          f"{res.trips}")
+    print("boost schedule:", np.round(Z[1:, 4]).astype(int).tolist())
+    print(f"Solve time (incl. first-use costs): {time.time()-t0:.1f}s "
+          f"on {device}")
+    return 0 if (
+        int(res.status) == int(Status.SOLVED) and res.certified
+    ) else 1
 
 
 def solve_3d(argv: Optional[Sequence[str]] = None) -> int:
@@ -160,7 +224,7 @@ def solve_3d(argv: Optional[Sequence[str]] = None) -> int:
           f"viol={float(res.viol_eq):.2e}/{float(res.viol_in):.2e}  "
           f"t={time.time()-t0:.1f}s on {device}")
     print("xN =", X[-1].cpu().numpy(), " goal =", data.xf.cpu().numpy())
-    return _solved(res)
+    return _solved(res.status)
 
 
 def mpc_demo(argv: Optional[Sequence[str]] = None) -> int:
@@ -200,6 +264,7 @@ def mpc_demo(argv: Optional[Sequence[str]] = None) -> int:
 COMMANDS = {
     "solve_ocp": solve_ocp,
     "solve_mip": solve_mip,
+    "solve_exact_composed": solve_exact_composed,
     "solve_3d": solve_3d,
     "mpc_demo": mpc_demo,
 }

@@ -14,11 +14,13 @@ package pads them, so the two packages hold the same numbers.
 
 :func:`tree_flatten` lists the tensors of a :class:`VGPData` in the order
 ``jax.tree.leaves`` lists the JAX package's, which is what
-:func:`vgpdata_from_numpy` relies on.
+:func:`vgpdata_from_numpy` relies on; :func:`tree_unflatten` is its
+inverse for any tree (``map_lanes``, the checkpoint loader).
 """
 from __future__ import annotations
 
 import dataclasses
+import typing
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -103,43 +105,90 @@ def tree_map(fn: Callable, *trees):
     return fn(*trees)
 
 
-def tree_flatten(tree) -> List[torch.Tensor]:
-    """The leaves of a dataclass tree, depth-first in field order."""
+def _children(tree):
+    """(keys, children, rebuild) of an inner node of a tree: a dataclass
+    (its fields in order), a dict (keys sorted, as ``jax.tree`` orders
+    them), a list or a tuple (by index); None for a leaf."""
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        out = []
-        for f in dataclasses.fields(tree):
-            out.extend(tree_flatten(getattr(tree, f.name)))
-        return out
-    return [tree]
+        names = [f.name for f in dataclasses.fields(tree)]
+        return (names, [getattr(tree, n) for n in names],
+                lambda kids: type(tree)(**dict(zip(names, kids))))
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+
+        def rebuild(kids):
+            by_key = dict(zip(keys, kids))
+            return {k: by_key[k] for k in tree}  # the dict's own order
+
+        return keys, [tree[k] for k in keys], rebuild
+    if isinstance(tree, (list, tuple)):
+        return (list(range(len(tree))), list(tree),
+                lambda kids: type(tree)(kids))
+    return None
 
 
-_CHILDREN = {"obstacles": ObstacleData, "tracks": TrackData}
+def tree_flatten(tree) -> List[torch.Tensor]:
+    """The leaves of a tree of dataclasses, dicts, lists and tuples,
+    depth-first (dataclass fields in order, dict keys sorted)."""
+    node = _children(tree)
+    if node is None:
+        return [tree]
+    return [leaf for kid in node[1] for leaf in tree_flatten(kid)]
 
 
-def _unflatten(cls, it):
-    kw = {}
-    for f in dataclasses.fields(cls):
-        child = _CHILDREN.get(f.name) if cls is VGPData else None
-        kw[f.name] = _unflatten(child, it) if child else next(it)
-    return cls(**kw)
+def tree_flatten_with_paths(tree, prefix: str = ""
+                            ) -> List[Tuple[str, object]]:
+    """(path, leaf) pairs in :func:`tree_flatten`'s order; a path joins
+    the field names, dict keys and indices above the leaf with ``/``."""
+    node = _children(tree)
+    if node is None:
+        return [(prefix, tree)]
+    return [kv for key, kid in zip(node[0], node[1])
+            for kv in tree_flatten_with_paths(
+                kid, f"{prefix}/{key}" if prefix else str(key))]
 
 
-def vgpdata_unflatten(leaves: Sequence[torch.Tensor]) -> VGPData:
-    """Inverse of :func:`tree_flatten` for a :class:`VGPData`."""
+def _structure(cls):
+    """A template of a dataclass type for :func:`tree_unflatten`: its
+    nested dataclass fields (read from the annotations) as templates,
+    every other field a leaf."""
+    hints = typing.get_type_hints(cls)
+    return cls(**{
+        f.name: (_structure(hints[f.name])
+                 if dataclasses.is_dataclass(hints[f.name]) else None)
+        for f in dataclasses.fields(cls)
+    })
+
+
+def _unflatten(like, it):
+    node = _children(like)
+    if node is None:
+        return next(it)
+    _, kids, rebuild = node
+    return rebuild([_unflatten(k, it) for k in kids])
+
+
+def tree_unflatten(like, leaves: Sequence[torch.Tensor]):
+    """Inverse of :func:`tree_flatten`: a tree of the structure of
+    ``like`` with ``leaves`` in its places. ``like`` is a tree, or a
+    dataclass type such as :class:`VGPData`."""
+    if isinstance(like, type):
+        like = _structure(like)
     it = iter(leaves)
-    data = _unflatten(VGPData, it)
+    tree = _unflatten(like, it)
     if next(it, None) is not None:
-        raise ValueError("too many leaves for a VGPData")
-    return data
+        raise ValueError(f"too many leaves for a {type(like).__name__}")
+    return tree
 
 
-def map_lanes(fn: Callable, data: VGPData, *args):
+def map_lanes(fn: Callable, data, *args):
     """``fn(data_of_lane, *args_of_lane)`` for every lane of a batched
     ``data`` (``torch.func.vmap`` over the leading axis of its tensors
     and of ``args``) — the port's counterpart of ``jax.vmap`` over a
-    batched VGPData."""
+    batched VGPData. ``data`` is any dataclass tree of tensors; each lane
+    is rebuilt in the structure of ``data`` itself."""
     return vmap(
-        lambda leaves, *a: fn(vgpdata_unflatten(leaves), *a)
+        lambda leaves, *a: fn(tree_unflatten(data, leaves), *a)
     )(tuple(tree_flatten(data)), *args)
 
 
@@ -149,7 +198,8 @@ def vgpdata_from_numpy(leaves: Sequence, device=None) -> VGPData:
     jax.tree.leaves(data)]``), keeping their dtypes, on ``device`` (the
     card when none is given)."""
     device = resolve(device)
-    return vgpdata_unflatten(
+    return tree_unflatten(
+        VGPData,
         [torch.tensor(np.asarray(a), device=device) for a in leaves]
     )
 

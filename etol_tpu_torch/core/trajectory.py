@@ -105,7 +105,8 @@ def _increment_path(fp: str) -> str:
     return fp
 
 
-def _host(a) -> np.ndarray:
+def to_host(a) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
@@ -114,7 +115,7 @@ def _host(a) -> np.ndarray:
 def save(traj: Traj, fp: str) -> str:
     """CSV export parity (TrajectoryOptimizer.cpp:626-674): header
     ``time,traj0,...``; returns the (possibly incremented) path written."""
-    times, values = _host(traj[0]), _host(traj[1])
+    times, values = to_host(traj[0]), to_host(traj[1])
     if times.size == 0:
         print("No Data to Save!!!")
         return fp

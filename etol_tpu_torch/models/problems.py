@@ -1,8 +1,9 @@
 """Canonical VGP builders as ``(VGP, NLP)`` factories.
 
 Counterparts of the factories of ``etol_tpu/models/problems.py``: the
-two shipped XML problems (``canonical_ocp_2d``, ``canonical_mip_2d``)
-and the scaling ladder (``double_integrator_2d``, ``uas_2d``,
+two shipped XML problems (``canonical_ocp_2d``, ``canonical_mip_2d``),
+the exact engine's composed demo (``composed_exact_demo``) and the
+scaling ladder (``double_integrator_2d``, ``uas_2d``,
 ``point_mass_3d``, ``fixed_wing_3dof``); call
 ``vgp.to_device(device=...)`` and hand both to the solvers of
 :mod:`etol_tpu_torch.solve.al_sqp`.
@@ -16,6 +17,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..core.problem import VGP
+from ..core.types import ParamConfig, VarType
 from ..core.xml_io import load_configs
 from ..transcribe.nlp import NLP
 from . import dynamics
@@ -226,5 +228,52 @@ def fixed_wing_3dof(
         ),
         scheme="hermite_simpson",
         use_obstacles=False,
+    )
+    return vgp, nlp
+
+
+def composed_exact_demo():
+    """Composed exact-MILP demo: a BINARY 'boost' param gating the speed
+    limit (|u| <= 0.35 + 1.15 b at cost 0.4 b per active step) plus a
+    square exclusion zone blocking the straight line. The horizon is too
+    short to reach the goal at base speed, so an exact solve must BOTH
+    switch the boost on (integer branching) and pick an escape side past
+    the zone (disjunction branching): the analog of the reference's
+    single GLPK model holding per-window binaries and obstacle-side
+    binaries together (etol_glpk_example1.cpp:160-276).
+
+    Linear dynamics + convex cost + linear rows: every relaxation is
+    convex, so ``side_branch.solve_exact(..., convex_relaxation=True)``
+    certifies the optimum. Used by ``cli solve_exact_composed``."""
+    vgp = VGP(nsteps=6, dt=0.5)
+    vgp.x0 = [0.0, 0.0]
+    vgp.xf = [3.0, 0.0]
+    vgp.xtol = [0.02, 0.02]
+    vgp.xlower = [-1.0, -2.0]
+    vgp.xupper = [4.0, 2.0]
+    vgp.ulower = [-1.5, -1.5]
+    vgp.uupper = [1.5, 1.5]
+    vgp.add_exclusion_zone(
+        [[1.2, -0.4], [1.8, -0.4], [1.8, 0.4], [1.2, 0.4]]
+    )
+    vgp.add_params(
+        {"boost": ParamConfig(VarType.BINARY, 0.0, 1.0, 0.0, 3.0)}
+    )
+
+    def cost(x, u, t, d, p):
+        return u[0] ** 2 + u[1] ** 2 + 0.4 * p[0]
+
+    def speed_gate(x, u, t, d, p):
+        cap = 0.35 + 1.15 * p[0]
+        return torch.stack([u[0] - cap, -u[0] - cap,
+                            u[1] - cap, -u[1] - cap])
+
+    nlp = NLP(
+        dims=vgp.dims(),
+        dynamics=dynamics.single_integrator,
+        running_cost=cost,
+        path_ineq=(speed_gate,),
+        scheme="euler",
+        cost_form="sum",
     )
     return vgp, nlp

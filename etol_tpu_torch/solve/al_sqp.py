@@ -193,7 +193,8 @@ class _ALFuncs:
     first; the per-lane math (``_*_lane``) is written for one problem and
     mapped over lanes with ``torch.func.vmap``."""
 
-    def __init__(self, nlp: NLP, cfg: SolverConfig, data: VGPData):
+    def __init__(self, nlp: NLP, cfg: SolverConfig, data: VGPData,
+                 box=None):
         self.nlp, self.cfg, self.data = nlp, cfg, data
         d = nlp.dims
         self.K, self.w = d.nodes, d.node_width
@@ -213,6 +214,12 @@ class _ALFuncs:
         B = lb.shape[0]
         self.lb = lb.reshape(B, self.K, self.w)
         self.ub = ub.reshape(B, self.K, self.w)
+        if box is not None:
+            # an extra per-entry box (a branch-and-bound node's integer
+            # branching), intersected with the NLP bounds
+            blo, bhi = box
+            self.lb = torch.maximum(self.lb, blo.reshape(B, self.K, self.w))
+            self.ub = torch.minimum(self.ub, bhi.reshape(B, self.K, self.w))
         self.pinned = (self.ub - self.lb) <= 1e-12
         self.scale = self._lanes(nlp.variable_scales)[:, None, :].expand(
             B, self.K, self.w
@@ -730,10 +737,12 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
 
 
 def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
-                 rho_init=None) -> SolveResult:
+                 rho_init=None, box=None) -> SolveResult:
     """The flattened AL-SQP over a batch; ``z0`` [B, nz], ``lam0`` a
-    (lam_def, lam_eq, mu) triple with lane axes, ``rho_init`` [B]."""
-    F = _ALFuncs(nlp, cfg, data)
+    (lam_def, lam_eq, mu) triple with lane axes, ``rho_init`` [B],
+    ``box`` an optional (lo, hi) pair of [B, K, w] bounds intersected with
+    the NLP's (``z0`` is clamped into the intersection)."""
+    F = _ALFuncs(nlp, cfg, data, box)
     B = F.lb.shape[0]
     dtype, dev = F.dtype, F.lb.device
     lam_def0, lam_eq0, mu0 = lam0

@@ -67,9 +67,35 @@ def test_solve_mip_smooth_path(in_tmp, capsys):
     assert (in_tmp / "state_mip_etol_tpu_torch.csv").exists()
 
 
-def test_solve_mip_exact_says_it_is_not_ported():
-    with pytest.raises(SystemExit, match="item 15"):
-        cli.solve_mip(["--exact", "--device", "cpu"])
+def test_solve_mip_exact_says_it_is_not_ported(in_tmp, capsys):
+    """Ported since: ``solve_mip --exact`` runs the branch-and-bound under
+    the search's defaults and reports what the JAX CLI reports — the
+    auto-detected convexity is off on this field (its L1 epigraph rows
+    are user path inequalities), so the tree is not closed: MAX_ITER,
+    uncertified, exit code 1, at the same objective."""
+    assert cli.solve_mip(["--exact", "--device", "cpu"]) == 1
+    out = capsys.readouterr().out
+    assert jcli.solve_mip(["--exact"]) == 1
+    jout = capsys.readouterr().out
+    for text in (out, jout):
+        assert "Status:\t\t\tMAX_ITER" in text
+        assert "certified=False" in text and "[side-bb] incumbent" in text
+    np.testing.assert_allclose(_score(out), _score(jout), rtol=1e-3)
+    np.testing.assert_allclose(_score(out), 11.958, rtol=1e-3)
+    assert "on cpu" in out
+    X = np.loadtxt(in_tmp / "state_mip_etol_tpu_torch.csv", delimiter=",",
+                   skiprows=1)
+    np.testing.assert_allclose(X[-1, 1:], [5.0, 4.0], atol=0.011)
+
+
+def test_solve_exact_composed(in_tmp, capsys):
+    assert cli.main(["solve_exact_composed", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Status:\t\t\tSOLVED (certified=True)" in out
+    np.testing.assert_allclose(_score(out.replace("  bound", "\nbound")),
+                               8.44876, atol=1e-3)
+    sched = out.split("boost schedule:")[1].splitlines()[0]
+    assert "1" in sched and "on cpu" in out
 
 
 def test_solve_3d(in_tmp, capsys):
@@ -93,7 +119,7 @@ def test_arguments_and_the_default_device():
     with pytest.raises(SystemExit, match="--device"):
         cli.solve_ocp(["--device"])
     assert set(cli.COMMANDS) == {"solve_ocp", "solve_mip", "solve_3d",
-                                 "mpc_demo"}
+                                 "mpc_demo", "solve_exact_composed"}
     if not torch.cuda.is_available():
         # no --device means the card
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -45,10 +45,12 @@ MODULES = [
     "__init__", "bench_harness", "bench_scaling", "cli", "optimizer",
     "core/__init__", "core/_native", "core/device", "core/geometry",
     "core/problem", "core/trajectory", "core/types", "core/xml_io",
+    "io/__init__", "io/checkpoint", "io/lp_export", "io/lp_io",
     "models/__init__", "models/dynamics", "models/problems", "models/tuned",
     "ops/__init__", "ops/bt_cuda", "ops/cyclic_reduction",
-    "solve/__init__", "solve/al_sqp", "solve/btridiag", "solve/options",
-    "solve/planners", "solve/refine", "solve/shooting",
+    "solve/__init__", "solve/al_sqp", "solve/branch_bound",
+    "solve/btridiag", "solve/options", "solve/planners", "solve/refine",
+    "solve/shooting", "solve/side_branch",
     "transcribe/__init__", "transcribe/collocation", "transcribe/nlp",
     "transcribe/obstacles",
 ]

@@ -214,8 +214,6 @@ def test_rescue_default_cold_rescues_warm_skips(solved_opt, monkeypatch):
 
 
 def test_unported_entries_say_why(solved_opt):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        solved_opt.solve_exact()
     solved_opt.set_planner("rrt")  # a known name is accepted
     with pytest.raises(NotImplementedError, match="item 14"):
         solved_opt.plan(n_samples=8)
@@ -224,6 +222,53 @@ def test_unported_entries_say_why(solved_opt):
     with pytest.raises(ValueError, match="unknown planner"):
         planners.plan("dijkstra", None, 1, solved_opt.data)
     solved_opt.set_planner("shooting")
+
+
+def test_facade_solve_exact():
+    """MILP-backend parity on the facade (as tests/test_optimizer.py):
+    ``solve_exact()`` runs the certified branch-and-bound, stores the
+    MIPResult, and the scalar lifecycle (get_score/get_xtraj/save) works
+    on the incumbent trajectory."""
+    from etol_tpu_torch.models import problems
+
+    vgp, nlp = problems.composed_exact_demo()
+    topt = TrajectoryOptimizer(device="cpu")
+    topt.vgp = vgp
+    topt.nlp = nlp
+    topt.data, topt.dims = vgp.to_device(device="cpu")
+    mres = topt.solve_exact(wave=8, max_nodes=384, convex_relaxation=True)
+    print(f"facade solve_exact: obj {mres.obj:.6f}, {mres.nodes_solved} "
+          f"nodes, {mres.waves} waves, {mres.trips} trips, "
+          f"{topt.last_solve_seconds:.1f} s")
+    assert mres.certified and mres.status == int(Status.SOLVED)
+    assert topt.mip_result is mres
+    assert topt.get_status() == Status.SOLVED
+    assert topt.get_score() == pytest.approx(mres.obj, abs=1e-6)
+    assert mres.obj == pytest.approx(8.44876, abs=1e-3)
+    ts, X = topt.get_xtraj()
+    assert X.shape == (topt.dims.nodes, 2) and ts.shape == (7,)
+    assert float(topt.result.viol_in) == 0.0
+
+
+def test_facade_solve_exact_without_an_incumbent():
+    """A search that finds nothing leaves infinite violations in the
+    installed result, so it never reads as a feasible solve."""
+    vgp = etol_tpu_torch.VGP(nsteps=4, dt=0.5)
+    vgp.x0, vgp.xf, vgp.xtol = [0.0, 0.0], [10.0, 0.0], [0.01, 0.01]
+    vgp.xlower, vgp.xupper = [-20.0, -20.0], [20.0, 20.0]
+    vgp.ulower, vgp.uupper = [-0.5, -0.5], [0.5, 0.5]
+    topt = TrajectoryOptimizer(al_sqp.SolverConfig(max_total=150),
+                               device="cpu")
+    topt.vgp = vgp
+    topt.set_dynamics(dynamics.single_integrator)
+    topt.set_objective(_cost, form="sum")
+    topt.set_scheme("euler")
+    topt.setup()
+    mres = topt.solve_exact(wave=2, max_nodes=16, max_retries=0)
+    assert not mres.incumbent_found and not mres.certified
+    assert topt.get_status() == Status.MAX_ITER
+    assert float(topt.result.viol_eq) == float("inf")
+    assert topt.result.z.shape == (topt.dims.nz,)
 
 
 def test_plan_packs_a_rollout(solved_opt):
