@@ -8,14 +8,14 @@ config, solves, and prints the score:
     python -m etol_tpu_torch.cli solve_ocp [config.xml] [--device cpu]
     python -m etol_tpu_torch.cli solve_mip [config.xml] [--exact] [--device cpu]
     python -m etol_tpu_torch.cli solve_exact_composed [--device cpu]
-    python -m etol_tpu_torch.cli solve_3d [--device cpu]
+    python -m etol_tpu_torch.cli solve_3d [out_dir] [--device cpu]
     python -m etol_tpu_torch.cli mpc_demo [steps] [--device cpu]
 
 Every function takes ``argv`` (defaulting to ``sys.argv[1:]``), so a
 harness or a test can drive it in-process, and runs on the card unless
 ``--device`` says otherwise (an error where there is none). Not here:
-the plots of ``solve_3d``, ``fleet_batch`` and ``bench`` (the port's
-bench is ``python -m etol_tpu_torch.bench_harness``).
+``fleet_batch`` and ``bench`` (the port's bench is ``python -m
+etol_tpu_torch.bench_harness``).
 """
 from __future__ import annotations
 
@@ -207,8 +207,9 @@ def solve_exact_composed(argv: Optional[Sequence[str]] = None) -> int:
 
 
 def solve_3d(argv: Optional[Sequence[str]] = None) -> int:
-    """3D point mass with moving spherical obstacles (BASELINE config 3);
-    no plots."""
+    """3D point mass with moving spherical obstacles (BASELINE config 3).
+    With an output directory, writes the xy path with the zones
+    (``pm3d_xy.png``) and its animation (``pm3d.gif``) there."""
     argv, device = _args(argv)
     from .models.problems import point_mass_3d
     from .solve.al_sqp import SolverConfig, solve
@@ -224,6 +225,21 @@ def solve_3d(argv: Optional[Sequence[str]] = None) -> int:
           f"viol={float(res.viol_eq):.2e}/{float(res.viol_in):.2e}  "
           f"t={time.time()-t0:.1f}s on {device}")
     print("xN =", X[-1].cpu().numpy(), " goal =", data.xf.cpu().numpy())
+    if argv:
+        from .viz import animate2d, plot_xy_with_zones
+
+        out = argv[0]
+        os.makedirs(out, exist_ok=True)
+        ts = np.arange(X.shape[0]) * vgp.dt
+        plot_xy_with_zones(
+            (ts, X), vgp.obstacles, vgp.tracks,
+            save=os.path.join(out, "pm3d_xy.png"),
+        )
+        gif = animate2d(
+            (ts, X), vgp.obstacles, vgp.tracks,
+            save=os.path.join(out, "pm3d.gif"), fps=8,
+        )
+        print(f"artifacts: {out}/pm3d_xy.png, {gif}")
     return _solved(res.status)
 
 

@@ -1,1 +1,2 @@
-"""Vehicle dynamics, problem builders and measured solver configs."""
+"""Vehicle dynamics, the problems built on them (single vehicles and the
+deconflicted multi-vehicle fleet) and measured solver configs."""

@@ -147,10 +147,11 @@ class TrajectoryOptimizer:
 
     def set_planner(self, name: str) -> None:
         """eOMPL setPlanner parity (eOMPL.cpp:132): choose the sampling
-        planner {RRT, SST, EST, KPIECE, PDST} used by :meth:`plan`; the
-        extra non-OMPL names {CEM, SHOOTING} are also accepted. The name
-        is validated here; of these only SHOOTING is ported, and
-        :meth:`plan` raises ``NotImplementedError`` for the others."""
+        planner {RRT, SST, EST, KPIECE, PDST} used by :meth:`plan` —
+        each keeps its defining mechanism (Voronoi bias, density bias,
+        coverage bias, witness pruning, subdivision priorities;
+        solve/planners.py); the extra non-OMPL names {CEM, SHOOTING} are
+        also accepted. The name is validated here."""
         from .solve.planners import EXTRA_PLANNERS, PLANNERS
 
         if name.strip().upper() not in PLANNERS + EXTRA_PLANNERS:

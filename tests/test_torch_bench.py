@@ -105,3 +105,40 @@ def test_timed_batches_count_solved_lanes_only():
     again = bench_harness.prepare(B, NSTEPS, "cpu")[3]
     assert torch.equal(data.x0, again.x0)
     assert dataclasses.is_dataclass(first["result"])
+
+
+def test_tuned_uas_quality_no_drift():
+    """The port's counterpart of the JAX package's uas quality guard
+    (``tests/test_models.py::test_tuned_uas_quality_no_drift``): on the
+    bench's batch of scattered problems, the registry uas config (pieces
+    containment, the registry's seeds, its cumulative budget) lands
+    objectives within 2% of a fat-budget reference solve of the same
+    transcription on the mean, and within 10% on any lane."""
+    from etol_tpu_torch.models import tuned
+    from etol_tpu_torch.models.problems import uas_2d
+    from etol_tpu_torch.solve import al_sqp, shooting
+
+    B = 16
+    vgp, nlp = uas_2d(nsteps=50)
+    ex = tuned.tuned_extras("uas_2d")
+    nlp = dataclasses.replace(nlp, obstacle_form=ex["obstacle_form"])
+    data, _ = vgp.to_device(device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    bdata = bench_harness.make_batch(nlp, data, B, gen)
+    cfg, stages = tuned.tuned_config("uas_2d", batch=B, kkt_solver="scan")
+    z0 = shooting.plan_guess(nlp, bdata, ex["seed_walks"], gen,
+                             pulled=ex["seed_pulled"])
+    # cumulative budget (the stage ladder's shapes mean nothing at B=16)
+    cum = cfg.max_total + sum(b for _, b in stages)
+    res = al_sqp.solve_batched(
+        nlp, dataclasses.replace(cfg, max_total=cum), bdata, z0)
+    assert res.status.tolist() == [1] * B
+    ref = al_sqp.solve_batched(
+        nlp, dataclasses.replace(cfg, max_total=600, rho0=1000.0,
+                                 rho_growth=2.0), bdata, z0)
+    ok = ref.status == 1
+    assert int(ok.sum()) >= B - 1
+    r, f = res.obj[ok], ref.obj[ok]
+    assert float(r.mean() / f.mean()) <= 1.02, (float(r.mean()),
+                                               float(f.mean()))
+    assert float((r / f).max()) <= 1.10, float((r / f).max())

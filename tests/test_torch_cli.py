@@ -67,8 +67,8 @@ def test_solve_mip_smooth_path(in_tmp, capsys):
     assert (in_tmp / "state_mip_etol_tpu_torch.csv").exists()
 
 
-def test_solve_mip_exact_says_it_is_not_ported(in_tmp, capsys):
-    """Ported since: ``solve_mip --exact`` runs the branch-and-bound under
+def test_solve_mip_exact_matches_the_reference_cli(in_tmp, capsys):
+    """``solve_mip --exact`` runs the branch-and-bound under
     the search's defaults and reports what the JAX CLI reports — the
     auto-detected convexity is off on this field (its L1 epigraph rows
     are user path inequalities), so the tree is not closed: MAX_ITER,
@@ -99,9 +99,15 @@ def test_solve_exact_composed(in_tmp, capsys):
 
 
 def test_solve_3d(in_tmp, capsys):
-    assert cli.solve_3d(["--device", "cpu"]) == 0
+    """With an output directory, as the JAX CLI, it also writes the xy
+    plot with the zones and the animation there."""
+    assert cli.solve_3d([str(in_tmp / "art"), "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.startswith("Status: SOLVED") and "xN =" in out
+    for name in ("pm3d_xy.png", "pm3d.gif"):
+        path = in_tmp / "art" / name
+        assert path.exists() and path.stat().st_size > 1000, name
+    assert "artifacts:" in out
 
 
 def test_mpc_demo(in_tmp, capsys):

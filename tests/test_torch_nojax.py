@@ -46,13 +46,15 @@ MODULES = [
     "core/__init__", "core/_native", "core/device", "core/geometry",
     "core/problem", "core/trajectory", "core/types", "core/xml_io",
     "io/__init__", "io/checkpoint", "io/lp_export", "io/lp_io",
-    "models/__init__", "models/dynamics", "models/problems", "models/tuned",
+    "models/__init__", "models/dynamics", "models/fleet", "models/problems",
+    "models/tuned",
     "ops/__init__", "ops/bt_cuda", "ops/cyclic_reduction",
     "solve/__init__", "solve/al_sqp", "solve/branch_bound",
     "solve/btridiag", "solve/options", "solve/planners", "solve/refine",
     "solve/shooting", "solve/side_branch",
     "transcribe/__init__", "transcribe/collocation", "transcribe/nlp",
-    "transcribe/obstacles",
+    "transcribe/obstacles", "utils/__init__", "utils/profiling",
+    "viz/__init__", "viz/plots",
 ]
 
 

@@ -213,10 +213,11 @@ def test_rescue_default_cold_rescues_warm_skips(solved_opt, monkeypatch):
     assert calls == ["rescue", "rescue"]
 
 
-def test_unported_entries_say_why(solved_opt):
-    solved_opt.set_planner("rrt")  # a known name is accepted
-    with pytest.raises(NotImplementedError, match="item 14"):
-        solved_opt.plan(n_samples=8)
+def test_planner_names_are_checked(solved_opt):
+    solved_opt.set_planner("rrt")  # a known name is accepted, and runs
+    res = solved_opt.plan(n_samples=8)
+    assert res.z.shape == (solved_opt.dims.nz,)
+    assert bool(torch.isfinite(res.z).all())
     with pytest.raises(ValueError, match="unknown planner"):
         solved_opt.set_planner("dijkstra")
     with pytest.raises(ValueError, match="unknown planner"):
