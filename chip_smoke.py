@@ -43,8 +43,8 @@ result line:
 7. mpc     — the single-problem warm re-solve at N=50
              (``bench_harness.run_mpc``) under ``kkt_solver="kernel"``
              (every iteration a launch at B=1) and again under ``"cr"``
-             (the JAX package's route, no launch; the first 10 of the 20
-             re-solves): statuses, latencies, launches and
+             (the JAX package's route, no launch; the first MPC_CR_STEPS
+             of the MPC_STEPS re-solves): statuses, latencies, launches and
              cyclic-reduction solves of each;
 8. bench   — ``bench_harness.bench`` at B=2048 with one timed cold and
              one timed warm batch and phase 7's MPC figures under
@@ -61,8 +61,9 @@ result line:
              and against cyclic reduction in phase 6);
 10. facade — the library's entry point on the default device: the README's
              Quick start on ``ocp_2d_ex1.xml`` (load, setup, solve, debug,
-             get_xtraj, save, load_csv), 20 ``mpc_step``s under "kernel"
-             and 10 under "cr", ``solve_multistart`` on both shipped problems
+             get_xtraj, save, load_csv), MPC_STEPS ``mpc_step``s under
+             "kernel" and MPC_CR_STEPS under "cr", ``solve_multistart`` on
+             both shipped problems
              (the OCP against the golden CSVs), ``solve_batch`` at B=2048
              cold with a rescue of 512 lanes and warm, a small fleet whose
              tight budget forces the rescue phase, and the CLI's
@@ -73,7 +74,7 @@ result line:
              ``kkt_solver="kernel"`` (every Newton trip of every wave one
              launch at (17, 6, 8)) and under ``"cr"`` (no launch), and the
              facade's ``solve_exact`` on the composed demo (a BINARY boost
-             and an obstacle, wave 8; launches at (7, 5, 8)), with
+             and an obstacle, wave 16; launches at (7, 5, 16)), with
              ``get_xtraj`` and ``save``; nodes, waves, trips, launches and
              seconds of each, and one JSON line of its findings;
 12. planners — the sampling planners on ``uas_2d`` N=50 (three boxes) at
@@ -89,7 +90,20 @@ result line:
              re-solved warm under "cr", two vehicles (w = 8) single under "kernel" (launches at
              (25, 8, 1)), and a batch of FLEET_B two-vehicle fleets with
              starts moved by a fixed draw of +-0.25 (launches at (25, 8,
-             FLEET_B)); one JSON line.
+             FLEET_B)); one JSON line;
+14. parallel — the parallel layer: the horizon-sharded SPIKE KKT solve
+             (``parallel.kkt.make_solver`` over n slabs, one launch for
+             the slabs' interiors with their 2w+1 columns as lanes and one
+             for the separators) at B=1, w=5, K in SPIKE_K and n in
+             SPIKE_N against the direct launch and the plain version
+             (max |dx|, host ms with a sync); ``dryrun_multichip(8)`` on
+             the card (a batch-sharded tiny uas_2d, warm ticks, a K=512
+             obstacle solve horizon-sharded over 8 slabs against the
+             unsharded one, the sharded evaluators); ``cli fleet_batch
+             512`` in-process; two subprocess ranks on this card over gloo
+             (``python -m etol_tpu_torch.parallel.distributed``, loading
+             the library this process built) whose gathered objectives
+             must be this process's ``solve_batched``; one JSON line.
 
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py
@@ -128,9 +142,11 @@ FORCED_SHAPES = ((33, 4, FORCED_B), (33, 4, FORCED_LANES * 4))
 B1_SHAPE = (51, 5, 1)
 # the exact path: a wave of EXACT_WAVE nodes is one batched solve, so
 # mip_2d_ex1.xml launches at (17, 6, 8) (a facade shape already) and the
-# composed demo (K=7, w=5: two states, two controls, the boost) at (7, 5, 8)
-EXACT_WAVE, EXACT_MAX_NODES = 8, 384
-EXACT_SHAPES = ((17, 6, EXACT_WAVE), (7, 5, EXACT_WAVE))
+# composed demo (K=7, w=5: two states, two controls, the boost) at (7, 5,
+# COMPOSED_WAVE): waves of 16 since the parallel phase came (on a CPU 22
+# waves, 1044 trips, against 40 and 1589 at 8; the same certified optimum)
+EXACT_WAVE, COMPOSED_WAVE, EXACT_MAX_NODES = 8, 16, 384
+EXACT_SHAPES = ((17, 6, EXACT_WAVE), (7, 5, COMPOSED_WAVE))
 # the fleet phase: fleet_2d's 24 steps (K=25) of two vehicles (w = 4V = 8)
 # solved one at a time and as a batch of FLEET_B fleets whose starts move
 # by a fixed numpy draw within +-FLEET_SPREAD; solve_batched keeps the
@@ -158,9 +174,39 @@ FLEET2_OBJ, FLEET2_RTOL = 8.696102, 1e-2
 # the same script's exact phase runs on a CPU)
 MIP_GOLDEN, COMPOSED_OPT = 11.96, 8.44876
 MIP_TOL, COMPOSED_TOL, MIP_ROUTE_TOL = 7e-3, 1e-3, 2e-3
+# the parallel phase: SPIKE at B=1, w=SPIKE_W over n slabs; the dry-run
+# over DRYRUN_N entries (horizon 2), its long horizon K = DRYRUN_NSTEPS + 1
+# single-integrator nodes (w = 4) over DRYRUN_N slabs and its tiny uas_2d
+# (K = 8, B = 8: the chunks share the card, one batch); cli fleet_batch at
+# FLEET_BATCH_B (one card, one chunk); the two ranks' demo (double
+# integrator K = 21, w = 6, 4 lanes a rank, 8 in this process; SPIKE at
+# K = 16, w = 3 and the horizon solve at K = 16, w = 4, a slab a rank)
+SPIKE_K, SPIKE_N, SPIKE_W, SPIKE_REPS = (512, 2048), (8, 32), 5, 20
+DRYRUN_N, DRYRUN_NSTEPS = 8, 511
+FLEET_BATCH_B = 512
+DIST_RANKS, DIST_B = 2, 8
+
+
+def spike_shapes(K, w, n, B=1, slabs=None):
+    """The two launches of one SPIKE solve of B systems over n slabs, of
+    which a process holds ``slabs`` (n; 1 a rank): the interiors with
+    their 2w+1 columns as lanes, and the separators."""
+    slabs = n if slabs is None else slabs
+    return ((K // n - 1, w, B * slabs * (2 * w + 1)), (n, w, B))
+
+
+PARALLEL_SHAPES = tuple(dict.fromkeys(
+    [s for K in SPIKE_K for n in SPIKE_N
+     for s in spike_shapes(K, SPIKE_W, n)]
+    + list(spike_shapes(DRYRUN_NSTEPS + 1, 4, DRYRUN_N))
+    + [(DRYRUN_NSTEPS + 1, 4, 1), (8, 5, 8), (51, 5, FLEET_BATCH_B),
+       (21, 6, DIST_B), (21, 6, DIST_B // DIST_RANKS)]
+    + list(spike_shapes(16, 3, DIST_RANKS, slabs=1))
+    + list(spike_shapes(16, 4, DIST_RANKS, slabs=1)) + [(16, 4, 1)]))
 TIMED_SHAPES = (MAIN_SHAPES + LADDER_SHAPES + FACADE_SHAPES + (B1_SHAPE,)
                 + tuple(s for s in EXACT_SHAPES if s not in FACADE_SHAPES)
-                + FLEET_SHAPES)
+                + FLEET_SHAPES
+                + tuple(s for s in PARALLEL_SHAPES if s != B1_SHAPE))
 # batches that are no multiple of the lanes a block takes
 RAGGED_SHAPES = ((51, 5, 3), (41, 6, 7), (21, 6, 1000))
 TIMED_SET_BYTES = 100 * 2 ** 20
@@ -185,13 +231,15 @@ CHECKED = None
 # Cholesky (and the kernel, up to its width), and the B=1 horizons timed
 CR_SHAPES = ((51, 5, 64), (41, 6, 64), (101, 9, 64), (21, 10, 64))
 B1_HORIZONS = (51, 101, 511, 2047)
-# phases 7 and 10: re-solves of the "cr" side (the "kernel" side takes 20)
-MPC_CR_STEPS = 10
+# phases 7 and 10: re-solves under "kernel" and of the "cr" side (20 and
+# 10 until the parallel phase came, cut to keep the script near half its
+# time limit)
+MPC_STEPS, MPC_CR_STEPS = 10, 5
 # phase 9, fw100's warm A/B: the starts move by this much (km; the ladder
 # scatters them within 0.05), and a re-solve gets this many iterations
 WARM_DRIFT, WARM_BUDGET = 0.005, 60
 PHASES = ("kernel", "main", "a/b", "cr", "mpc", "bench", "ladder", "facade",
-          "exact", "planners", "fleet")
+          "exact", "planners", "fleet", "parallel")
 # the planners phase: the planner-seeded solves, and the facade's budget
 # on ocp_2d_ex1.xml: 4 s, 8192 samples, a quarter of its problem-derived
 # 16 s (32768 samples, 511 trips a tree, 48 s of the phase on a slower
@@ -337,7 +385,7 @@ def path_shapes(bench_scaling):
                 if (K, w, b) not in shapes:
                     shapes.append((K, w, b))
     for shape in ((B1_SHAPE,) + FACADE_SHAPES + FORCED_SHAPES + EXACT_SHAPES
-                  + FLEET_SHAPES):
+                  + FLEET_SHAPES + PARALLEL_SHAPES):
         if shape not in shapes:
             shapes.append(shape)
     return shapes
@@ -441,9 +489,10 @@ def check_kernel(torch, bt_cuda, btridiag, shapes):
         for variant in VARIANTS:
             both = [ms for v, ms in runs if v == variant]
             t[variant] = sum(both) / len(both)
+        # one call at the long horizons (1.4 s at K=511)
         t["plain"] = median_ms(
             torch, lambda i: btridiag.solve_refined(*sets[i % n]),
-            reps=PLAIN_REPS)
+            reps=PLAIN_REPS if K <= 200 else 1)
         # the nearest single PyTorch call: a dense solve of the assembled
         # [B, K w, K w] systems, no refinement; the assembly is not timed
         D, O, r = sets[0]
@@ -459,7 +508,8 @@ def check_kernel(torch, bt_cuda, btridiag, shapes):
                       + ", ".join(f"{v} {ms:.4f} ms" for v, ms in runs)
                       + f", plain {t['plain']:.4f} ms (CUDA events: median "
                         f"of 20 replays of a graph of {TIMED_INNER} "
-                        f"launches, plain of {PLAIN_REPS} single calls); "
+                        f"launches, plain of {PLAIN_REPS} single calls, one "
+                        f"above K=200); "
                         f"bound {t['bound']:.6f} ms by "
                         f"{t['bound_by']} ({nbytes} B, {flops:.0f} flop); "
                         f"torch.linalg.solve on the dense [{B}, {K * w}, "
@@ -570,7 +620,8 @@ def check_mpc(torch, bench_harness, bt_cuda, cyclic_reduction):
     "kernel" every Newton iteration is one launch at B=1 and cyclic
     reduction is never called; under "cr" the reverse. The "cr" side,
     which only stands beside the other for comparison, takes the first
-    MPC_CR_STEPS of the 20 re-solves and skips the back-to-back part."""
+    MPC_CR_STEPS of the MPC_STEPS re-solves and skips the back-to-back
+    part."""
     nlp, cfg, _, _, _ = bench_harness.prepare(1, MAIN_NSTEPS)
     if cfg.kkt_solver != "kernel":
         raise AssertionError("the registry's route is not the kernel")
@@ -580,7 +631,7 @@ def check_mpc(torch, bench_harness, bt_cuda, cyclic_reduction):
         reset_counts(bt_cuda, cyclic_reduction)
         out = bench_harness.run_mpc(
             nlp, dataclasses.replace(cfg, kkt_solver=route), single,
-            steps=20 if route == "kernel" else MPC_CR_STEPS,
+            steps=MPC_STEPS if route == "kernel" else MPC_CR_STEPS,
             pipelined=route == "kernel")
         out["launches"] = bt_cuda.LAUNCHES
         out["cr_solves"] = cyclic_reduction.SOLVES
@@ -594,7 +645,8 @@ def check_mpc(torch, bench_harness, bt_cuda, cyclic_reduction):
                    f"{int(out['cold'].inner_iters)} iterations; re-solve "
                    f"statuses {out['statuses']}, iterations {out['iters']}")
         tail = ("" if out["pipelined_ms"] is None else
-                f", {out['pipelined_ms']:.2f} ms a step with 20 dispatched "
+                f", {out['pipelined_ms']:.2f} ms a step with {MPC_STEPS} "
+                f"dispatched "
                 f"back to back and one sync")
         say("mpc", f"kkt_solver={route}: p50 re-solve latency "
                    f"{out['p50_ms']:.2f} ms over {len(out['statuses'])} "
@@ -809,7 +861,7 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
     out["solve"] = dict(score=score, iters=iters, launches=launches,
                         seconds=topt.last_solve_seconds)
 
-    # -- 20 MPC steps along the solved trajectory, under both routes, each
+    # -- MPC steps along the solved trajectory, under both routes, each
     # from the state the Quick start left
     snap = (topt.data, topt.result, list(topt.vgp.x0))
     cfg0 = topt.config
@@ -820,7 +872,7 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
         topt.vgp.x0 = list(snap[2])
         reset_counts(bt_cuda, cyclic_reduction)
         lat, statuses, its = [], [], []
-        steps = 20 if route == "kernel" else MPC_CR_STEPS
+        steps = MPC_STEPS if route == "kernel" else MPC_CR_STEPS
         for _ in range(steps):
             _, Xk = topt.get_xtraj()
             r = topt.mpc_step(Xk[1])
@@ -1059,7 +1111,7 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
     topt.vgp, topt.nlp = vgp, nlp
     topt.data, topt.dims = vgp.to_device()
     reset_counts(bt_cuda, cyclic_reduction)
-    mres = topt.solve_exact(wave=EXACT_WAVE, max_nodes=EXACT_MAX_NODES,
+    mres = topt.solve_exact(wave=COMPOSED_WAVE, max_nodes=EXACT_MAX_NODES,
                             convex_relaxation=True)
     launches, by, cr_solves = counts("composed")
     f = found(mres, topt.last_solve_seconds, launches, by, cr_solves)
@@ -1070,7 +1122,7 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
         path = topt.save((times, X), os.path.join(tmp, "state.csv"))
         _, X_back = trajectory.load_csv(path)
     say("exact", f"facade solve_exact(composed_exact_demo, wave "
-                 f"{EXACT_WAVE}, max_nodes {EXACT_MAX_NODES}, convex): "
+                 f"{COMPOSED_WAVE}, max_nodes {EXACT_MAX_NODES}, convex): "
                  f"{topt.get_status().name}, certified {mres.certified}, "
                  f"score {topt.get_score():.6f} (limit {COMPOSED_OPT} +- "
                  f"{COMPOSED_TOL}), boost schedule "
@@ -1369,6 +1421,172 @@ def check_fleet(torch, bt_cuda, cyclic_reduction):
     return out
 
 
+def check_parallel(torch, bt_cuda, btridiag, cyclic_reduction):
+    """Phase 14: the parallel layer on the card; returns its findings.
+    Every step raises on a miss."""
+    import contextlib
+    import io
+    import socket
+
+    from etol_tpu_torch import cli
+    from etol_tpu_torch.parallel import distributed, kkt, make_mesh
+    from etol_tpu_torch.parallel.dryrun import dryrun_multichip
+    from etol_tpu_torch.solve import al_sqp
+
+    sync = torch.cuda.synchronize
+    out = {}
+
+    def counts(path):
+        by = dict(bt_cuda.LAUNCHES_BY)
+        assert_checked(f"parallel {path}", by)
+        return bt_cuda.LAUNCHES, {"K%d_w%d_B%d" % k[1:]: n
+                                  for k, n in sorted(by.items())}, by
+
+    # -- SPIKE against the direct launch and the plain version, B=1
+    systems = {K: spd_problem(torch, 1, K, SPIKE_W, seed=K) for K in SPIKE_K}
+    meshes = {n: make_mesh(["cuda"] * n, axis_names=("horizon",))
+              for n in SPIKE_N}
+    solvers = {(n, route): kkt.make_solver(meshes[n], "horizon", route)
+               for n in SPIKE_N for route in kkt.ROUTES}
+    reset_counts(bt_cuda, cyclic_reduction)
+    xs = {(K, n): solvers[n, "kernel"](*systems[K])
+          for K in SPIKE_K for n in SPIKE_N}
+    sync()
+    launches, by_name, by = counts("spike")
+    want = {}
+    for K in SPIKE_K:
+        for n in SPIKE_N:
+            for shape in spike_shapes(K, SPIKE_W, n):
+                want[("smem",) + shape] = want.get(("smem",) + shape, 0) + 1
+    if by != want:
+        raise AssertionError(f"SPIKE launches {by}, expected {want}")
+    out["spike_launches"] = launches
+
+    def refined(f, D, O, r):
+        # what the solver's override does: a solve and one refinement pass
+        x = f(D, O, r)
+        return x + f(D, O, r - btridiag.matvec(D, O, x))
+
+    rows = {}
+    for K in SPIKE_K:
+        D, O, r = systems[K]
+        direct = bt_cuda.solve(D, O, r)
+        sync()
+        t0 = time.perf_counter()
+        plain = btridiag.solve_refined(D, O, r)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        limit = 2e-4 * (1.0 + float(plain.abs().max()))
+        direct_ms = host_ms(torch, lambda: bt_cuda.solve(D, O, r),
+                            reps=SPIKE_REPS)
+        for n in SPIKE_N:
+            x = xs[K, n]
+            row = dict(
+                variant_direct=bt_cuda.plan(K, SPIKE_W, 1).variant,
+                err_direct=float((x - direct).abs().max()),
+                err_plain=float((x - plain).abs().max()),
+                resid=float((r - btridiag.matvec(D, O, x)).abs().max()),
+                spike_ms=host_ms(
+                    torch, lambda: solvers[n, "kernel"](D, O, r),
+                    reps=SPIKE_REPS),
+                spike_refined_ms=host_ms(
+                    torch, lambda: refined(solvers[n, "kernel"], D, O, r),
+                    reps=SPIKE_REPS),
+                spike_plain_ms=host_ms(
+                    torch, lambda: solvers[n, "scan"](D, O, r), reps=3),
+                direct_ms=direct_ms, plain_direct_ms=plain_ms)
+            say("parallel", f"SPIKE B=1 K={K} w={SPIKE_W} over n={n} "
+                            f"slabs: {row} (host ms with a sync, median of "
+                            f"{SPIKE_REPS}; the plain SPIKE of 3; the plain "
+                            f"direct solve one call; limit {limit:.3e})")
+            if not (row["err_direct"] <= limit and row["err_plain"] <= limit):
+                raise AssertionError(f"SPIKE disagrees at K={K}, n={n}")
+            rows[f"K{K}_n{n}"] = row
+    out["spike"] = rows
+
+    # -- the dry run, every mesh entry the card
+    reset_counts(bt_cuda, cyclic_reduction)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(DRYRUN_N, horizon_nsteps=DRYRUN_NSTEPS)
+    sync()
+    dry["seconds"] = time.perf_counter() - t0
+    dry["launches"], dry["launches_by"], by = counts("dryrun")
+    say("parallel", f"dryrun_multichip({DRYRUN_N}): {dry}")
+    need = [("smem",) + shape for shape in
+            spike_shapes(DRYRUN_NSTEPS + 1, 4, DRYRUN_N)
+            + ((DRYRUN_NSTEPS + 1, 4, 1), (8, 5, 8))]
+    if not all(by.get(key) for key in need) or cyclic_reduction.SOLVES:
+        raise AssertionError(f"the dry run's launches {by}: every KKT solve "
+                             f"should be the kernel, at {need}")
+    out["dryrun"] = dry
+
+    # -- cli fleet_batch, in-process
+    reset_counts(bt_cuda, cyclic_reduction)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = cli.fleet_batch([str(FLEET_BATCH_B)])
+    text = text.getvalue()
+    launches, by_name, by = counts("cli fleet_batch")
+    solved = float(text.split("solved: ")[1].split("%")[0]) / 100
+    say("parallel", f"cli fleet_batch {FLEET_BATCH_B}: exit code {rc}; "
+                    + " | ".join(text.strip().splitlines())
+                    + f"; {launches} kernel launches {by_name}")
+    if rc != 0 or not solved >= 0.95 or set(by) != {
+            ("smem", 51, 5, FLEET_BATCH_B)}:
+        raise AssertionError(f"cli fleet_batch: solved {solved}, {by}")
+    out["fleet_batch"] = dict(solved_fraction=solved, launches=launches,
+                              output=text.strip().splitlines())
+
+    # -- two ranks on this card over gloo, against this process's solve
+    reset_counts(bt_cuda, cyclic_reduction)
+    res = al_sqp.solve_batched(*distributed.demo_problem("cuda", DIST_B))
+    obj = res.obj.tolist()
+    counts("distributed parent")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for rank in range(DIST_RANKS):
+            env = dict(os.environ, ETOL_COORDINATOR=f"127.0.0.1:{port}",
+                       ETOL_NUM_PROCS=str(DIST_RANKS),
+                       ETOL_PROC_ID=str(rank),
+                       PYTHONPATH=HERE + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "etol_tpu_torch.parallel.distributed",
+                 "--device", "cuda:0", "--backend", "gloo"],
+                cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        texts = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank} failed:\n{text[-3000:]}")
+        found = json.loads([line for line in text.splitlines()
+                            if line.startswith("{")][-1])
+        say("parallel", f"rank {rank} of {DIST_RANKS} on cuda:0 over gloo: "
+                        f"{found}")
+        err = max(abs(a - b) for a, b in zip(found["obj"], obj))
+        missed = {tuple(int(v) for v in re.findall(r"\d+", k))
+                  for k in found["launches_by"]} - CHECKED
+        if (found["statuses"] != [1] * (DIST_B // DIST_RANKS)
+                or not err <= 1e-4 or found["warm_solved"] != 1.0
+                or found["horizon"]["status"] != 1
+                or found["launches"] <= 0 or missed):
+            raise AssertionError(f"rank {rank}: |dobj| {err}, unchecked "
+                                 f"launch shapes {missed}: {found}")
+        found["max_abs_dobj"] = err
+        ranks.append(found)
+    out["distributed"] = dict(obj_single_process=obj, ranks=ranks)
+    return out
+
+
 def main(phases=PHASES):
     """Phases 1 and 2, then the named ones in order; the two result lines
     are printed only when every phase ran."""
@@ -1507,6 +1725,13 @@ def main(phases=PHASES):
               flush=True)
         clock.lap("fleet")
 
+    # 14. the parallel layer; its JSON line goes out before the last two
+    if "parallel" in phases:
+        par = check_parallel(torch, bt_cuda, btridiag, cyclic_reduction)
+        print(json.dumps({"phase": "parallel", "card": CARD, **par}),
+              flush=True)
+        clock.lap("parallel")
+
     if tuple(phases) != PHASES:
         return
     print(CARD, flush=True)
@@ -1544,7 +1769,12 @@ def main(phases=PHASES):
             "fleet_v3": fleet_out["v3_kernel"]["launches"],
             "fleet_v3_cr": fleet_out["v3_cr"]["launches"],
             "fleet_v2": fleet_out["v2"]["launches"],
-            "fleet_batch": fleet_out["batch"]["launches"]},
+            "fleet_batch": fleet_out["batch"]["launches"],
+            "parallel_spike": par["spike_launches"],
+            "parallel_dryrun": par["dryrun"]["launches"],
+            "cli_fleet_batch": par["fleet_batch"]["launches"],
+            **{f"distributed_rank{r['rank']}": r["launches"]
+               for r in par["distributed"]["ranks"]}},
         "max_abs_err": max_abs_err,
         "ms": top["smem"],
         "ms_global_scratch": top["global"],

@@ -6,7 +6,9 @@ shipped XML problems (solve, multistart, the fleet call with its rescue
 phase, the MPC step, the certified branch-and-bound of ``solve_exact``),
 and the bench's main path (batched ``uas_2d``
 problems: shooting seeds, the staged AL-SQP solve, the obstacle audit
-and the warm fleet re-solve) on an NVIDIA H100, with the
+and the warm fleet re-solve) and the parallel layer (``parallel``: batch
+and horizon sharding, multi-process batches on ``torch.distributed``) on
+an NVIDIA H100, with the
 block-tridiagonal KKT solve as a hand-written CUDA kernel
 (``csrc/bt_solve.cu``). Module and function names follow the JAX package
 so that each part has an obvious counterpart.

@@ -10,15 +10,16 @@ config, solves, and prints the score:
     python -m etol_tpu_torch.cli solve_exact_composed [--device cpu]
     python -m etol_tpu_torch.cli solve_3d [out_dir] [--device cpu]
     python -m etol_tpu_torch.cli mpc_demo [steps] [--device cpu]
+    python -m etol_tpu_torch.cli fleet_batch [B] [--device cpu]
+    python -m etol_tpu_torch.cli bench [bench_harness arguments]
 
 Every function takes ``argv`` (defaulting to ``sys.argv[1:]``), so a
 harness or a test can drive it in-process, and runs on the card unless
-``--device`` says otherwise (an error where there is none). Not here:
-``fleet_batch`` and ``bench`` (the port's bench is ``python -m
-etol_tpu_torch.bench_harness``).
+``--device`` says otherwise (an error where there is none).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -277,12 +278,73 @@ def mpc_demo(argv: Optional[Sequence[str]] = None) -> int:
     return 0
 
 
+def fleet_batch(argv: Optional[Sequence[str]] = None) -> int:
+    """Fleet-scale batched solving sharded over every card (``--device``:
+    over that one device): ``uas_2d`` N=50, B problems (512 by default)
+    with starts uniform in ±0.5, drawn on the host from seed 0, solved
+    twice by :func:`parallel.solve_sharded`."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    named = "--device" in argv
+    argv, device = _args(argv)
+    from .core.problem import batch_tile
+    from .models.problems import uas_2d
+    from .models.tuned import tuned_config, tuned_extras
+    from .parallel import make_mesh, solve_sharded
+    from .solve import shooting
+
+    B = int(argv[0]) if argv else 512
+    vgp, nlp = uas_2d(nsteps=50)
+    data, _ = vgp.to_device(device=device)
+    u = torch.rand((B, 2), generator=torch.Generator().manual_seed(0))
+    x0 = torch.cat([u - 0.5, torch.zeros((B, 1))], dim=1).to(device)
+    bdata = dataclasses.replace(batch_tile(data, B), x0=x0)
+
+    mesh = make_mesh([device] if named else None)
+    # the registry's pairing (models/tuned.py): pieces containment, walk
+    # and pulled seeds, its penalty schedule. solve_sharded is one
+    # unstaged solve, so its budget is the registry's cumulative one
+    # (the first phase's and every stage's)
+    ex = tuned_extras("uas_2d")
+    nlp = dataclasses.replace(nlp, obstacle_form=ex["obstacle_form"])
+    cfg, raw = tuned_config("uas_2d")
+    cfg = dataclasses.replace(
+        cfg, max_total=cfg.max_total + sum(b for _, b in raw))
+
+    def run():
+        t0 = time.time()
+        z0 = shooting.plan_guess(nlp, bdata, ex["seed_walks"],
+                                 pulled=ex["seed_pulled"])
+        res = solve_sharded(nlp, cfg, bdata, mesh, z0=z0)
+        _sync(device)
+        return res, time.time() - t0
+
+    res, t_first = run()
+    res, t_warm = run()
+    status = res.status.cpu().numpy()
+    print(f"devices: {mesh.devices.size}  batch: {B}")
+    print(f"solved: {(status == 1).mean()*100:.1f}%  "
+          f"max viol: {float(res.viol_eq.max()):.1e}")
+    print(f"first (incl. first-use costs): {t_first:.1f}s  second: "
+          f"{t_warm*1e3:.0f}ms  -> {B/t_warm:.0f} solves/s")
+    return 0
+
+
+def bench(argv: Optional[Sequence[str]] = None) -> int:
+    """The benchmark harness (``python -m etol_tpu_torch.bench_harness``)."""
+    from .bench_harness import main as _main
+
+    _main(argv)
+    return 0
+
+
 COMMANDS = {
     "solve_ocp": solve_ocp,
     "solve_mip": solve_mip,
     "solve_exact_composed": solve_exact_composed,
     "solve_3d": solve_3d,
     "mpc_demo": mpc_demo,
+    "fleet_batch": fleet_batch,
+    "bench": bench,
 }
 
 

@@ -30,7 +30,10 @@ reduction, a choice made for the TPU). Nodes wider than 9 and float64
 problems take cyclic reduction (:mod:`..ops.cyclic_reduction`). The
 route is chosen from the width and the dtype before anything is
 launched: a kernel that fails to build or launch raises. ``"scan"``
-and ``"cr"`` name one path for every shape and dtype.
+and ``"cr"`` name one path for every shape and dtype. A KKT solver
+handed to ``_solve_batch`` (``kkt_solve``: the horizon-sharded SPIKE
+solve of ``parallel/solve_sharded.py``) takes every solve instead, with
+one refinement pass.
 
 Precision. Float32 by default, with reduced-precision matmul modes off:
 the reference pins ``Precision.HIGHEST`` because reduced-precision
@@ -194,7 +197,10 @@ class _ALFuncs:
     mapped over lanes with ``torch.func.vmap``."""
 
     def __init__(self, nlp: NLP, cfg: SolverConfig, data: VGPData,
-                 box=None):
+                 box=None, kkt_solve=None):
+        # an optional KKT override f(D, O, rhs) -> direction, e.g. the
+        # horizon-sharded SPIKE solve (parallel/kkt.py) over a mesh
+        self.kkt_solve = kkt_solve
         self.nlp, self.cfg, self.data = nlp, cfg, data
         d = nlp.dims
         self.K, self.w = d.nodes, d.node_width
@@ -559,7 +565,12 @@ class _ALFuncs:
         s = self.scale
         rhs = torch.where(free, -(s * grad_), torch.zeros_like(grad_))
         D, O, rhs = D.contiguous(), O.contiguous(), rhs.contiguous()
-        if self.kkt == "kernel":
+        if self.kkt_solve is not None:
+            # a supplied solver (the horizon-sharded SPIKE solve), with
+            # one refinement pass, as the other routes have
+            pt = self.kkt_solve(D, O, rhs)
+            pt = pt + self.kkt_solve(D, O, rhs - btridiag.matvec(D, O, pt))
+        elif self.kkt == "kernel":
             pt = bt_cuda.solve(D, O, rhs)
         elif self.kkt == "cr":
             pt = cyclic_reduction.solve_refined(D, O, rhs)
@@ -737,12 +748,17 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
 
 
 def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
-                 rho_init=None, box=None) -> SolveResult:
+                 rho_init=None, box=None, kkt_solve=None,
+                 agree=None) -> SolveResult:
     """The flattened AL-SQP over a batch; ``z0`` [B, nz], ``lam0`` a
     (lam_def, lam_eq, mu) triple with lane axes, ``rho_init`` [B],
     ``box`` an optional (lo, hi) pair of [B, K, w] bounds intersected with
-    the NLP's (``z0`` is clamped into the intersection)."""
-    F = _ALFuncs(nlp, cfg, data, box)
+    the NLP's (``z0`` is clamped into the intersection), ``kkt_solve`` a
+    KKT solver ``f(D [B,K,w,w], O [B,K-1,w,w], r [B,K,w]) -> x`` in place
+    of the configured route, and ``agree`` a map of the [B] mask of lanes
+    still running to the mask every process of a group runs (where the
+    KKT solve is a collective, all of them must take the same trips)."""
+    F = _ALFuncs(nlp, cfg, data, box, kkt_solve)
     B = F.lb.shape[0]
     dtype, dev = F.dtype, F.lb.device
     lam_def0, lam_eq0, mu0 = lam0
@@ -778,8 +794,9 @@ def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
         )
 
     def cond(s):
-        return ((~s["done"]) & (s["o_it"] < cfg.max_outer)
-                & (s["tot"] < max_total))
+        active = ((~s["done"]) & (s["o_it"] < cfg.max_outer)
+                  & (s["tot"] < max_total))
+        return active if agree is None else agree(active)
 
     # One trip is the composite iteration: a full step, then the chord
     # steps. A lane's condition is tested once per trip, as the JAX

@@ -89,22 +89,29 @@ def factor(D, O) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def solve_factored(L_diag, L_sub, r):
     """Solve H x = r given the block Cholesky factor. r is [..., K, w]."""
+    return solve_factored_multi(L_diag, L_sub, r[..., None])[..., 0]
+
+
+def solve_factored_multi(L_diag, L_sub, R):
+    """Solve H X = R for a block of right-hand sides: R is [..., K, w, m]
+    (m columns a node).
+
+    Forward: L Y = R, Y_k = L_k^{-1} (R_k - L_sub[k-1] Y_{k-1}); backward:
+    L^T X = Y, X_k = L_k^{-T} (Y_k - L_sub[k]^T X_{k+1})."""
     K = L_diag.shape[-3]
-    # forward: L y = r;  y_k = L_k^{-1} (r_k - L_sub[k-1] y_{k-1})
     ys = []
     for k in range(K):
-        rhs = r[..., k, :, None]
+        rhs = R[..., k, :, :]
         if k:
             rhs = rhs - L_sub[..., k - 1, :, :] @ ys[-1]
         ys.append(_tri_solve(L_diag[..., k, :, :], rhs))
-    # backward: L^T x = y;  x_k = L_k^{-T} (y_k - L_sub[k]^T x_{k+1})
     xs = [None] * K
     for k in reversed(range(K)):
         rhs = ys[k]
         if k < K - 1:
             rhs = rhs - L_sub[..., k, :, :].transpose(-1, -2) @ xs[k + 1]
         xs[k] = _tri_solve(L_diag[..., k, :, :], rhs, trans=True)
-    return torch.stack(xs, dim=-3)[..., 0]
+    return torch.stack(xs, dim=-3)
 
 
 def solve(D, O, r):

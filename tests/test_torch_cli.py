@@ -121,12 +121,15 @@ def test_arguments_and_the_default_device():
     with pytest.raises(SystemExit, match="usage"):
         cli.main([])
     with pytest.raises(SystemExit, match="usage"):
-        cli.main(["fleet_batch"])
+        cli.main(["no_such_command"])
     with pytest.raises(SystemExit, match="--device"):
         cli.solve_ocp(["--device"])
     assert set(cli.COMMANDS) == {"solve_ocp", "solve_mip", "solve_3d",
-                                 "mpc_demo", "solve_exact_composed"}
+                                 "mpc_demo", "solve_exact_composed",
+                                 "fleet_batch", "bench"}
     if not torch.cuda.is_available():
         # no --device means the card
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.solve_ocp([])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["fleet_batch", "8"])

@@ -49,6 +49,9 @@ MODULES = [
     "models/__init__", "models/dynamics", "models/fleet", "models/problems",
     "models/tuned",
     "ops/__init__", "ops/bt_cuda", "ops/cyclic_reduction",
+    "parallel/__init__", "parallel/axis", "parallel/distributed",
+    "parallel/dryrun", "parallel/horizon", "parallel/kkt", "parallel/mesh",
+    "parallel/solve_sharded",
     "solve/__init__", "solve/al_sqp", "solve/branch_bound",
     "solve/btridiag", "solve/options", "solve/planners", "solve/refine",
     "solve/shooting", "solve/side_branch",
