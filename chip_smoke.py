@@ -103,7 +103,21 @@ result line:
              512`` in-process; two subprocess ranks on this card over gloo
              (``python -m etol_tpu_torch.parallel.distributed``, loading
              the library this process built) whose gathered objectives
-             must be this process's ``solve_batched``; one JSON line.
+             must be this process's ``solve_batched``; one JSON line;
+15. variants — the solver's line-search and Levenberg variants: the
+             bench's problem and seeds (uas_2d N=50, B=VARIANT_B) staged
+             through ``solve_batched_staged`` under the uas registry
+             config and under three variants (the nonmonotone line search
+             with the "best" rule, the count-rule damping without the
+             patience exit, the over-relaxed multipliers with a sparse
+             exponent grid and the deep-step round exit): solved share,
+             trips, seconds, launches by shape, and every solved lane held
+             to ``tol_cons`` by its violation and the exact audit; the
+             canonical OCP through the facade under the three knob
+             configurations of ``tests/test_solver.py`` (each SOLVED,
+             ``viol_eq < 1e-4``); one ``newton_step`` of NEWTON_B lanes
+             (one launch at (51, 5, NEWTON_B)) against the same step on the
+             plain route; one JSON line.
 
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py
@@ -195,6 +209,26 @@ def spike_shapes(K, w, n, B=1, slabs=None):
     return ((K // n - 1, w, B * slabs * (2 * w + 1)), (n, w, B))
 
 
+# the variants phase (15): the bench's batch and seed, the configurations
+# of its uas_2d runs and of its facade OCP solves (at (33, 4, 1)), and the
+# lanes of its newton_step
+VARIANT_B, VARIANT_SEED, NEWTON_B = 1024, 3, 8
+VARIANT_RUNS = (
+    ("default", {}),
+    ("nonmonotone_best", dict(ls_eta=0.85, ls_rule="best")),
+    ("count", dict(lm_rule="count", round_viol_patience=0)),
+    ("relaxed_sparse_deep", dict(
+        dual_relax=1.6, ls_exponents=(0, 1, 2, 3, 4, 5, 6, 7, 9, 12, 16, 22),
+        ls_deep_round=12)),
+)
+OCP_KNOBS = (
+    ("ls_eta", dict(ls_eta=0.85)),
+    ("patience", dict(round_viol_patience=4, rho_growth=3.16)),
+    ("count", dict(lm_rule="count", round_viol_patience=0)),
+)
+NEWTON_SHAPE = (51, 5, NEWTON_B)
+
+
 PARALLEL_SHAPES = tuple(dict.fromkeys(
     [s for K in SPIKE_K for n in SPIKE_N
      for s in spike_shapes(K, SPIKE_W, n)]
@@ -206,7 +240,8 @@ PARALLEL_SHAPES = tuple(dict.fromkeys(
 TIMED_SHAPES = (MAIN_SHAPES + LADDER_SHAPES + FACADE_SHAPES + (B1_SHAPE,)
                 + tuple(s for s in EXACT_SHAPES if s not in FACADE_SHAPES)
                 + FLEET_SHAPES
-                + tuple(s for s in PARALLEL_SHAPES if s != B1_SHAPE))
+                + tuple(s for s in PARALLEL_SHAPES if s != B1_SHAPE)
+                + (NEWTON_SHAPE,))
 # batches that are no multiple of the lanes a block takes
 RAGGED_SHAPES = ((51, 5, 3), (41, 6, 7), (21, 6, 1000))
 TIMED_SET_BYTES = 100 * 2 ** 20
@@ -239,7 +274,7 @@ MPC_STEPS, MPC_CR_STEPS = 10, 5
 # scatters them within 0.05), and a re-solve gets this many iterations
 WARM_DRIFT, WARM_BUDGET = 0.005, 60
 PHASES = ("kernel", "main", "a/b", "cr", "mpc", "bench", "ladder", "facade",
-          "exact", "planners", "fleet", "parallel")
+          "exact", "planners", "fleet", "parallel", "variants")
 # the planners phase: the planner-seeded solves, and the facade's budget
 # on ocp_2d_ex1.xml: 4 s, 8192 samples, a quarter of its problem-derived
 # 16 s (32768 samples, 511 trips a tree, 48 s of the phase on a slower
@@ -368,10 +403,11 @@ def path_shapes(bench_scaling):
     """Every (K, w, B) the later phases give the kernel, from the
     registry: each model's full batch and its stages' batches (the cold
     ones, and the warm re-solve's for the main path), at the size its path
-    runs and at the A/B's."""
+    runs and at the A/B's (uas_2d at the main path's batch and at the
+    variants phase's)."""
     from etol_tpu_torch.models.tuned import tuned_config, warm_config
 
-    runs = [("uas_2d", 51, 5, MAIN_B)]
+    runs = [("uas_2d", 51, 5, MAIN_B), ("uas_2d", 51, 5, VARIANT_B)]
     runs += [(bench_scaling.LADDER[name][1], K, w,
               bench_scaling.LADDER[name][3])
              for name, (K, w) in LADDER.items()]
@@ -385,7 +421,7 @@ def path_shapes(bench_scaling):
                 if (K, w, b) not in shapes:
                     shapes.append((K, w, b))
     for shape in ((B1_SHAPE,) + FACADE_SHAPES + FORCED_SHAPES + EXACT_SHAPES
-                  + FLEET_SHAPES + PARALLEL_SHAPES):
+                  + FLEET_SHAPES + PARALLEL_SHAPES + (NEWTON_SHAPE,)):
         if shape not in shapes:
             shapes.append(shape)
     return shapes
@@ -1587,6 +1623,141 @@ def check_parallel(torch, bt_cuda, btridiag, cyclic_reduction):
     return out
 
 
+def check_variants(torch, bench_harness, bt_cuda, cyclic_reduction):
+    """Phase 15: the solver's line-search and Levenberg variants on the
+    card; returns its findings. Every launch must be at a checked shape,
+    and every solved lane must pass the exact audit at ``tol_cons``."""
+    import numpy as np
+
+    from etol_tpu_torch import TrajectoryOptimizer, cli
+    from etol_tpu_torch.core.problem import map_lanes
+    from etol_tpu_torch.core.types import Status
+    from etol_tpu_torch.models import dynamics
+    from etol_tpu_torch.solve import al_sqp
+
+    SOLVED = int(Status.SOLVED)
+    out = {"uas": {}, "ocp": {}}
+
+    def counts(path):
+        by = dict(bt_cuda.LAUNCHES_BY)
+        assert_checked(f"variants {path}", by)
+        if bt_cuda.LAUNCHES <= 0 or cyclic_reduction.SOLVES:
+            raise AssertionError(
+                f"variants {path}: {bt_cuda.LAUNCHES} kernel launches and "
+                f"{cyclic_reduction.SOLVES} cyclic-reduction solves; every "
+                "KKT solve should be a launch")
+        return bt_cuda.LAUNCHES, {f"K{k[1]}_w{k[2]}_B{k[3]}": n for k, n in
+                                  sorted(by.items(), key=lambda kv: -kv[0][3])}
+
+    # -- uas_2d N=50 at VARIANT_B: the bench's problem and seeds, made
+    # anew from one seed for every run, so each run gets the same batch
+    for name, knobs in VARIANT_RUNS:
+        nlp, cfg, stages, data, gen = bench_harness.prepare(
+            VARIANT_B, MAIN_NSTEPS, seed=VARIANT_SEED)
+        cfg = dataclasses.replace(cfg, **knobs)
+        reset_counts(bt_cuda, cyclic_reduction)
+        cold = bench_harness.run_cold(nlp, cfg, data, stages, gen)
+        launches, by = counts(name)
+        res = cold["result"]
+        ok = res.status == SOLVED
+        viol = torch.maximum(res.viol_eq, res.viol_in)
+        viol_ok = float(viol[ok].max()) if bool(ok.any()) else 0.0
+        row = dict(solved=cold["solved_fraction"],
+                   trips=cold["stage_trips"], seconds=cold["cold_s"],
+                   seed_seconds=cold["seed_s"], launches=launches,
+                   launches_by=by, viol_max_solved=viol_ok,
+                   audit_node_depth_max=cold["audit_node_depth_max"])
+        say("variants", f"uas_2d N={MAIN_NSTEPS} B={VARIANT_B} {name} "
+                        f"{knobs}: solved {row['solved']:.4f}, stage trips "
+                        f"{row['trips']} ({sum(row['trips'])}), cold solve "
+                        f"{row['seconds']:.2f} s (seeds "
+                        f"{row['seed_seconds']:.2f} s), {launches} kernel "
+                        f"launches {by}; solved lanes: max violation "
+                        f"{viol_ok:.3e}, exact audit's deepest node "
+                        f"{row['audit_node_depth_max']:.3e} (limit "
+                        f"tol_cons {cfg.tol_cons:g})")
+        if not bool(ok.any()):
+            raise AssertionError(f"variants {name}: no lane solved")
+        if not (viol_ok <= cfg.tol_cons
+                and row["audit_node_depth_max"] <= cfg.tol_cons):
+            raise AssertionError(
+                f"variants {name}: a solved lane fails the audit at "
+                f"tol_cons ({viol_ok}, {row['audit_node_depth_max']})")
+        if not bool(torch.isfinite(res.z).all()):
+            raise AssertionError(f"variants {name}: non-finite z")
+        out["uas"][name] = row
+
+    # -- the canonical OCP through the facade under tests/test_solver.py's
+    # three knob configurations: each SOLVED with viol_eq < 1e-4
+    for name, knobs in OCP_KNOBS:
+        reset_counts(bt_cuda, cyclic_reduction)
+        topt = TrajectoryOptimizer(al_sqp.SolverConfig(**knobs))
+        topt.load_configs(cli.default_config("ocp_2d_ex1.xml"))
+        topt.set_dynamics(dynamics.single_integrator)
+        topt.set_objective(lambda x, u, t, d: u[0] ** 2 + u[1] ** 2)
+        topt.setup()
+        res = topt.solve()
+        launches, by = counts(f"ocp {name}")
+        row = dict(status=topt.get_status().name, score=topt.get_score(),
+                   viol_eq=float(res.viol_eq), iterations=int(res.inner_iters),
+                   seconds=topt.last_solve_seconds, launches=launches,
+                   launches_by=by)
+        say("variants", f"ocp_2d_ex1.xml through the facade, {knobs}: "
+                        f"{row['status']}, score {row['score']:.6f}, viol_eq "
+                        f"{row['viol_eq']:.3e}, {row['iterations']} "
+                        f"iterations in {row['seconds']:.2f} s, {launches} "
+                        f"launches {by}")
+        if int(res.status) != SOLVED or not row["viol_eq"] < 1e-4:
+            raise AssertionError(f"variants: the OCP under {knobs} ended "
+                                 f"{row['status']}, viol_eq {row['viol_eq']}")
+        out["ocp"][name] = row
+
+    # -- one newton_step of NEWTON_B lanes on the kernel, held against the
+    # same step on the plain "scan" route on the card
+    nlp, cfg, _, data, _ = bench_harness.prepare(NEWTON_B, MAIN_NSTEPS,
+                                                 seed=VARIANT_SEED)
+    z0 = map_lanes(nlp.initial_guess, data)
+    lam = al_sqp.init_multipliers(nlp, data)
+    rho = torch.full((NEWTON_B,), cfg.rho0, device=z0.device)
+    Z = z0.reshape(NEWTON_B, *NEWTON_SHAPE[:2])
+    steps = {}
+    for route in ("kernel", "scan"):
+        F = al_sqp._ALFuncs(nlp, dataclasses.replace(cfg, kkt_solver=route),
+                            data)
+        reset_counts(bt_cuda, cyclic_reduction)
+        t0 = time.perf_counter()
+        steps[route] = F.newton_step(Z, *lam, rho)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if route == "kernel":
+            launches, by = counts("newton_step")
+            if by != {"K%d_w%d_B%d" % NEWTON_SHAPE: 1}:
+                raise AssertionError(
+                    f"newton_step launched {by}, not once at {NEWTON_SHAPE}")
+            out["newton_step"] = dict(launches=launches, launches_by=by,
+                                      ms=ms)
+    (Zk, lmk, dk), (Zs, lms, ds) = steps["kernel"], steps["scan"]
+    dz = float((Zk - Zs).abs().max())
+    scale = 1.0 + float(Zs.abs().max())
+    out["newton_step"].update(
+        max_abs_dz_vs_scan=dz, ls_ok=int(dk["ls_ok"].sum()),
+        ls_steps=dk["ls_steps"].tolist())
+    say("variants", f"newton_step, {NEWTON_B} uas_2d lanes, kernel route: "
+                    f"{out['newton_step']['ms']:.1f} ms with a sync, "
+                    f"launches {out['newton_step']['launches_by']}, passed "
+                    f"{int(dk['ls_ok'].sum())} of {NEWTON_B}, backtracks "
+                    f"{dk['ls_steps'].tolist()}; max |Z_kernel - Z_scan| "
+                    f"{dz:.3e} (limit {1e-4 * scale:.3e})")
+    if not (torch.equal(dk["ls_ok"], ds["ls_ok"])
+            and torch.equal(dk["ls_steps"], ds["ls_steps"])
+            and dz <= 1e-4 * scale
+            and np.allclose(lmk.cpu().numpy(), lms.cpu().numpy(),
+                            rtol=1e-6)):
+        raise AssertionError("newton_step on the kernel disagrees with the "
+                             "plain route")
+    return out
+
+
 def main(phases=PHASES):
     """Phases 1 and 2, then the named ones in order; the two result lines
     are printed only when every phase ran."""
@@ -1732,6 +1903,13 @@ def main(phases=PHASES):
               flush=True)
         clock.lap("parallel")
 
+    # 15. the solver's variants; its JSON line goes out before the last two
+    if "variants" in phases:
+        var = check_variants(torch, bench_harness, bt_cuda, cyclic_reduction)
+        print(json.dumps({"phase": "variants", "card": CARD, **var}),
+              flush=True)
+        clock.lap("variants")
+
     if tuple(phases) != PHASES:
         return
     print(CARD, flush=True)
@@ -1774,7 +1952,12 @@ def main(phases=PHASES):
             "parallel_dryrun": par["dryrun"]["launches"],
             "cli_fleet_batch": par["fleet_batch"]["launches"],
             **{f"distributed_rank{r['rank']}": r["launches"]
-               for r in par["distributed"]["ranks"]}},
+               for r in par["distributed"]["ranks"]},
+            **{f"variants_{name}": run["launches"]
+               for name, run in var["uas"].items()},
+            **{f"variants_ocp_{name}": run["launches"]
+               for name, run in var["ocp"].items()},
+            "variants_newton_step": var["newton_step"]["launches"]},
         "max_abs_err": max_abs_err,
         "ms": top["smem"],
         "ms_global_scratch": top["global"],

@@ -3,9 +3,8 @@
 Loads ``libetpu_geometry.so`` when present (build: ``make -C native``);
 every entry point returns None on unavailability so callers fall back to
 the pure-Python implementations in :mod:`etol_tpu_torch.core.geometry`.
-The convex-partition entry of ``etol_tpu/core/_native.py``, copied
-because importing that package would import jax. Both load the same
-library.
+A copy of ``etol_tpu/core/_native.py``, kept apart because importing
+that package imports jax. Both load the same library.
 """
 from __future__ import annotations
 
@@ -41,8 +40,22 @@ def _load():
     lib.etpu_convex_partition.argtypes = [
         dptr, ctypes.c_int, iptr, iptr, ctypes.c_int, ctypes.c_int, iptr,
     ]
+    lib.etpu_point_in_polygon.restype = ctypes.c_int
+    lib.etpu_point_in_polygon.argtypes = [
+        dptr, ctypes.c_int, ctypes.c_double, ctypes.c_double,
+    ]
+    lib.etpu_piece_halfspaces.restype = ctypes.c_int
+    lib.etpu_piece_halfspaces.argtypes = [dptr, ctypes.c_int, dptr]
+    lib.etpu_edge_ellipses.restype = ctypes.c_int
+    lib.etpu_edge_ellipses.argtypes = [
+        dptr, ctypes.c_int, ctypes.c_double, dptr,
+    ]
     _LIB = lib
     return _LIB
+
+
+def available() -> bool:
+    return _load() is not None
 
 
 def _as_c(poly: np.ndarray):
@@ -75,3 +88,42 @@ def convex_partition_indices(poly: np.ndarray) -> Optional[List[List[int]]]:
     return [
         indices[offsets[p] : offsets[p + 1]].tolist() for p in range(rc)
     ]
+
+
+def point_in_polygon(point, poly: np.ndarray) -> Optional[bool]:
+    lib = _load()
+    if lib is None:
+        return None
+    poly, ptr = _as_c(np.asarray(poly))
+    return bool(
+        lib.etpu_point_in_polygon(
+            ptr, len(poly), float(point[0]), float(point[1])
+        )
+    )
+
+
+def piece_halfspaces(piece: np.ndarray) -> Optional[np.ndarray]:
+    lib = _load()
+    if lib is None:
+        return None
+    piece, ptr = _as_c(np.asarray(piece))
+    n = len(piece)
+    out = np.zeros((n, 3), dtype=np.float64)
+    rows = lib.etpu_piece_halfspaces(
+        ptr, n, out.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    )
+    return out[:rows]
+
+
+def edge_ellipses(poly: np.ndarray, flatten: float) -> Optional[np.ndarray]:
+    lib = _load()
+    if lib is None:
+        return None
+    poly, ptr = _as_c(np.asarray(poly))
+    n = len(poly)
+    out = np.zeros((n, 6), dtype=np.float64)
+    rows = lib.etpu_edge_ellipses(
+        ptr, n, float(flatten),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    return out[:rows]

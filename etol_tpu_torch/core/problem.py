@@ -20,6 +20,7 @@ inverse for any tree (``map_lanes``, the checkpoint loader).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import typing
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -45,6 +46,17 @@ class TrackData:
     mask: torch.Tensor
     dim_mask: torch.Tensor
 
+    @staticmethod
+    def empty(max_tracks: int, max_waypoints: int, ndim: int = 2,
+              dtype=torch.float32, device=None) -> "TrackData":
+        """No tracks, padded to at least one track of two waypoints in
+        two dims, on ``device`` (the card when none is given)."""
+        T, W, D = max(max_tracks, 1), max(max_waypoints, 2), max(ndim, 2)
+        z = functools.partial(torch.zeros, dtype=dtype,
+                              device=resolve(device))
+        return TrackData(times=z((T, W)), xy=z((T, W, D)), radius=z((T,)),
+                         mask=z((T,)), dim_mask=z((T, D)))
+
 
 @dataclasses.dataclass(frozen=True)
 class ObstacleData:
@@ -59,6 +71,18 @@ class ObstacleData:
     halfspaces: torch.Tensor
     hs_mask: torch.Tensor
     piece_mask: torch.Tensor
+
+    @staticmethod
+    def empty(max_e: int, max_p: int, max_h: int, dtype=torch.float32,
+              device=None) -> "ObstacleData":
+        """No obstacles, padded to at least one row of each form, on
+        ``device`` (the card when none is given)."""
+        E, P, H = max(max_e, 1), max(max_p, 1), max(max_h, 1)
+        z = functools.partial(torch.zeros, dtype=dtype,
+                              device=resolve(device))
+        return ObstacleData(ellipses=z((E, 6)), ellipse_mask=z((E,)),
+                            halfspaces=z((P, H, 3)), hs_mask=z((P, H)),
+                            piece_mask=z((P,)))
 
 
 def _empty_params():
@@ -86,6 +110,15 @@ class VGPData:
     p_window: torch.Tensor = dataclasses.field(
         default_factory=lambda: torch.zeros((0, 2), dtype=torch.float32)
     )
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x0.dtype
+
+    def astype(self, dtype) -> "VGPData":
+        """Every tensor cast to ``dtype`` (float64 problems take the
+        cyclic-reduction KKT route)."""
+        return tree_map(lambda a: a.to(dtype), self)
 
 
 # ---------------------------------------------------------------------------

@@ -95,3 +95,11 @@ class Status(enum.IntEnum):
     MAX_ITER = 2
     INFEASIBLE = 3
     DIVERGED = 4
+
+
+def default_float():
+    """The package's floating dtype, float32 (imported here lazily, as
+    the JAX package does, so this module stays pure Python)."""
+    import torch
+
+    return torch.float32

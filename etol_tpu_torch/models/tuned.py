@@ -5,10 +5,7 @@ Counterpart of ``etol_tpu/models/tuned.py``. The numbers are the JAX
 package's registry, swept there against its batched iteration CDF; the
 solver's iteration counts carry over only as far as the port's
 iterations match the reference's, which the CPU parity tests check on
-converged outcomes. Two keys of the JAX entry are left out:
-``ls_backtracks`` sizes only the sequential line search of
-``newton_step``, which the port does not have, and ``lm_rule="ratio"``
-is the port's only Levenberg rule.
+converged outcomes. Each entry is the JAX package's whole.
 """
 from __future__ import annotations
 
@@ -22,26 +19,29 @@ from ..solve.al_sqp import SolverConfig
 _TUNED = {
     "double_integrator_2d": (
         dict(max_outer=64, rho0=3160.0, rho_growth=5.6,
-             round_viol_patience=4, max_total=20, ls_grid=16),
+             lm_rule="ratio", round_viol_patience=4, max_total=20,
+             ls_grid=16, ls_backtracks=16),
         ((4, 10), (32, 256)),
     ),
     "uas_2d": (
         dict(max_outer=64, max_inner=100, rho0=3160.0,
-             rho_growth=5.6, round_viol_patience=4,
-             max_total=33, ls_grid=16),
+             rho_growth=5.6, lm_rule="ratio", round_viol_patience=4,
+             max_total=33, ls_grid=16, ls_backtracks=16),
         ((2, 16), (8, 32), (32, 96)),
     ),
     # trapezoidal: takes the separable assembly (cfg.sep_assembly)
     "point_mass_3d": (
         dict(max_outer=64, rho0=3160.0, rho_growth=5.6,
-             round_viol_patience=4, max_total=42, ls_grid=16),
+             lm_rule="ratio", round_viol_patience=4, max_total=42,
+             ls_grid=16, ls_backtracks=16),
         ((2, 16), (8, 32), (32, 96)),
     ),
     # radau scheme (see _MODEL_EXTRAS) + two chord steps per assembly:
     # obstacle-free, so stale blocks stay valid without active-set churn
     "fixed_wing_3dof": (
-        dict(max_outer=64, rho0=316.0, round_viol_patience=8,
-             max_total=124, chord_steps=2, ls_grid=16),
+        dict(max_outer=64, rho0=316.0, lm_rule="ratio",
+             round_viol_patience=8, max_total=124, chord_steps=2,
+             ls_grid=16, ls_backtracks=16),
         ((2, 18), (8, 64), (32, 256)),
     ),
 }

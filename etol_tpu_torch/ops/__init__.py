@@ -1,1 +1,8 @@
-"""Hand-written GPU kernels and their PyTorch wrappers."""
+"""The KKT solve's routes: the hand-written CUDA kernel and its wrapper
+(:mod:`.bt_cuda`), and block cyclic reduction in plain torch ops
+(:mod:`.cyclic_reduction`). Nothing is built when this package is
+imported: the kernel is compiled at its first launch."""
+
+from .cyclic_reduction import solve as cr_solve
+
+__all__ = ["cr_solve"]

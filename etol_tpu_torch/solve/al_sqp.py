@@ -64,13 +64,11 @@ _LS_EXPONENTS = tuple(range(24))
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Solver knobs; the defaults and meanings are the JAX package's
-    (see ``etol_tpu.solve.al_sqp.SolverConfig`` for the measurements
-    behind each). Its knobs that no registry entry and no option dialect
-    sets to anything but the one value ported here are not fields: the
-    Levenberg rule is ``lm_rule="ratio"``, and ``ls_eta``, ``ls_rule``,
-    ``dual_relax``, ``ls_deep_round``, ``ls_exponents`` and
-    ``ls_backtracks`` do not exist (asking for them is a TypeError)."""
+    """Solver knobs: the JAX package's fields, in its order, with its
+    defaults and meanings (see ``etol_tpu.solve.al_sqp.SolverConfig`` for
+    the measurements behind each). The one default that differs is
+    ``kkt_solver``: its values name the port's routes ("kernel" for the
+    CUDA kernel, where the JAX package's TPU route is "pallas")."""
 
     max_outer: int = 20
     max_inner: int = 50
@@ -94,6 +92,8 @@ class SolverConfig:
     lm0: float = 1e-3           # initial Levenberg damping (relative)
     lm_min: float = 1e-6
     lm_max: float = 30.0
+    ls_backtracks: int = 24     # halvings of the sequential Armijo search
+                                # of _ALFuncs.newton_step
     ls_c1: float = 1e-4
     ls_grid: int = 24           # line-search candidates 0.5**j, j < ls_grid
     max_total: int = 0          # global Newton budget; 0 = outer * inner
@@ -109,8 +109,22 @@ class SolverConfig:
                                 # "scan": the plain torch block Cholesky
                                 # everywhere; "cr": cyclic reduction
                                 # everywhere
+    ls_eta: float = 0.0         # Zhang-Hager nonmonotone line search:
+                                # accept against the decaying average C
+                                # of past AL values (eta = its memory;
+                                # 0 = monotone Armijo against the last
+                                # value)
     round_viol_patience: int = 8
     round_viol_factor: float = 0.9
+    dual_relax: float = 1.0     # over-relaxed multiplier update:
+                                # lambda += dual_relax * rho * c
+    ls_exponents: tuple = ()    # explicit line-search grid, alphas =
+                                # 0.5**e; () = 0..ls_grid-1
+    ls_deep_round: int = 0      # an accepted step at exponent >= this
+                                # counts as no progress (0 = off)
+    ls_rule: str = "first"      # "first": the largest passing alpha;
+                                # "best": the lowest AL value among the
+                                # passing candidates
     sep_assembly: bool = True   # euler/trapezoidal: one dynamics
                                 # Jacobian and one w-dim curvature
                                 # Hessian per NODE serve both adjacent
@@ -121,18 +135,19 @@ class SolverConfig:
                                 # reuse steps that re-solve the stored
                                 # KKT blocks with a fresh gradient (no
                                 # assembly); each counts as an iteration
+    lm_rule: str = "ratio"      # Levenberg signal: "ratio" (actual over
+                                # predicted decrease) or "count" (the
+                                # accepted step's backtrack depth)
 
     def __post_init__(self):
-        if self.kkt_solver not in ("kernel", "scan", "cr"):
-            raise ValueError(
-                f"kkt_solver must be 'kernel', 'scan' or 'cr', got "
-                f"{self.kkt_solver!r}"
-            )
-        if self.hessian not in ("defect", "gn", "full"):
-            raise ValueError(
-                f"hessian must be 'defect', 'gn' or 'full', got "
-                f"{self.hessian!r}"
-            )
+        for name, allowed in (("kkt_solver", ("kernel", "scan", "cr")),
+                              ("hessian", ("defect", "gn", "full")),
+                              ("ls_rule", ("first", "best")),
+                              ("lm_rule", ("ratio", "count"))):
+            value = getattr(self, name)
+            if value not in allowed:
+                raise ValueError(
+                    f"{name} must be one of {allowed}, got {value!r}")
         if self.chord_steps < 0:
             raise ValueError(
                 f"chord_steps must be >= 0, got {self.chord_steps}")
@@ -595,11 +610,61 @@ class _ALFuncs:
         return self.direction_from_blocks(
             D_eff, Ost, free_st, grad_, rho, lm)
 
+    def newton_step(self, Z, lam_def, lam_eq, mu, rho, lm=None):
+        """One damped projected-Newton iteration per lane, eagerly, with
+        the JAX package's sequential projected Armijo backtracking (up to
+        ``cfg.ls_backtracks`` halvings) and its count-rule Levenberg
+        update; returns (Znew, lm_next, diagnostics), lane axis first.
+
+        A lane stops backtracking at its first passing step and keeps it,
+        as each lane of the JAX package's vmapped ``while_loop`` does; the
+        loop runs while any lane still searches. The direction is
+        :meth:`direction`, so under ``kkt_solver="kernel"`` a CUDA batch
+        launches the kernel once."""
+        cfg = self.cfg
+        B = Z.shape[0]
+        if lm is None:
+            lm = Z.new_full((B,), cfg.lm0)
+        grad_ = self.al_grad(Z, lam_def, lam_eq, mu, rho)
+        g = self.residuals(Z)[2]
+        p, bad = self.direction(Z, grad_, lam_def, lam_eq, mu, rho, lm, g)
+        at_lb = Z <= self.lb + 1e-9
+        at_ub = Z >= self.ub - 1e-9
+        free = ~(
+            self.pinned | (at_lb & (grad_ > 0.0)) | (at_ub & (grad_ < 0.0))
+        )
+
+        val0 = self.al_value(Z, lam_def, lam_eq, mu, rho)
+        tries = torch.zeros_like(val0)
+        ls_ok = torch.zeros_like(bad)
+        Zc, val_new = Z, val0
+        for j in range(cfg.ls_backtracks):
+            searching = ~ls_ok
+            if not bool(searching.any()):
+                break
+            Zj = torch.clamp(Z + 0.5**j * p, self.lb, self.ub)
+            val = self.al_value(Zj, lam_def, lam_eq, mu, rho)
+            dec = torch.sum(grad_ * (Zj - Z), dim=(1, 2))
+            ok = ((val <= val0 + cfg.ls_c1 * dec) & torch.isfinite(val)
+                  & (dec < 0.0))
+            Zc = _sel(searching, Zj, Zc)
+            val_new = torch.where(searching, val, val_new)
+            tries = torch.where(searching, tries + 1.0, tries)
+            ls_ok = ls_ok | (searching & ok)
+        Znew = _sel(ls_ok, Zc, Z)
+        lm_next = _lm_update(cfg, lm, ~ls_ok | bad, tries <= 1.0,
+                             tries > 3.0, cap_growth=False)
+        diag = dict(
+            grad=grad_, free=free, p=p, bad=bad, ls_ok=ls_ok,
+            ls_steps=tries, val0=val0, val_new=val_new, lm=lm,
+        )
+        return Znew, lm_next, diag
+
 
 _STATE = (
     "Z", "cd", "ce", "g", "cost", "lam_def", "lam_eq", "mu", "rho",
-    "omega", "lm", "viol_prev", "viol_ref", "noprog", "in_it", "o_it",
-    "tot", "done", "pgn",
+    "omega", "lm", "viol_prev", "C", "Q", "viol_ref", "noprog", "in_it",
+    "o_it", "tot", "done", "pgn",
 )
 # the stored KKT blocks of the chord steps (state only when
 # cfg.chord_steps > 0): D, O, the free mask and the damping they hold
@@ -609,14 +674,16 @@ _CHORD_STATE = ("Dst", "Ost", "free_st", "dmp_st")
 def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
           reuse: bool = False) -> dict:
     """One flattened AL-SQP iteration for every lane (the JAX package's
-    ``body_diag`` with the registry's options). ``reuse`` makes it a
-    chord step: the direction comes from the stored blocks in ``st``
-    with a fresh gradient, and nothing is assembled."""
+    ``body_diag``). ``exps`` [n] are the line search's exponents.
+    ``reuse`` makes it a chord step: the direction comes from the stored
+    blocks in ``st`` with a fresh gradient, and nothing is assembled; the
+    line search and its variants are the same."""
     Z, cd, ce, g, cost = st["Z"], st["cd"], st["ce"], st["g"], st["cost"]
     lam_def, lam_eq, mu, rho = (st["lam_def"], st["lam_eq"], st["mu"],
                                 st["rho"])
     omega, lm, viol_prev, viol_ref = (st["omega"], st["lm"],
                                       st["viol_prev"], st["viol_ref"])
+    C, Q = st["C"], st["Q"]
     noprog, in_it, o_it, done = (st["noprog"], st["in_it"], st["o_it"],
                                  st["done"])
     B = Z.shape[0]
@@ -625,7 +692,13 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
     # ---- gradient/value at the current (Z, multiplier) pair
     grad_ = F.al_grad(Z, lam_def, lam_eq, mu, rho)
     val = F.al_from_parts(cost, cd, ce, g, lam_def, lam_eq, mu, rho)
-    ref = val
+    # the nonmonotone reference value (Zhang-Hager); an inf C is
+    # re-initialised from the current value (a round has just started)
+    if cfg.ls_eta > 0.0:
+        C = torch.where(torch.isfinite(C), C, val)
+        ref = C
+    else:
+        ref = val
     pgn = F.proj_grad_norm(Z, grad_)
     stat_floor = torch.clamp(cfg.stat_eps * rho, min=cfg.tol_stat)
     tol_inner = torch.maximum(stat_floor, omega)
@@ -681,8 +754,18 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
         & torch.isfinite(valc)
         & (decc < 0.0)
     )
-    sel = torch.argmax(okc.to(torch.int32), dim=1)  # first passing alpha
+    if cfg.ls_rule == "best":
+        # the lowest AL value among the passing candidates (the first of
+        # equal ones; candidate 0 when none passes)
+        sel = torch.argmin(
+            torch.where(okc, valc, torch.full_like(valc, float("inf"))),
+            dim=1)
+    else:
+        sel = torch.argmax(okc.to(torch.int32), dim=1)  # first passing
     ls_ok = okc.any(dim=1)
+    # the equivalent sequential-backtrack count (the count rule's signal)
+    exp_sel = exps[sel]
+    nsteps_ls = exp_sel + 1.0
 
     move = (~inner_done) & (~done) & ls_ok
     Znew = _sel(move, Zc[lanes, sel], Z)
@@ -692,21 +775,31 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
     cost_n = torch.where(move, costc[lanes, sel], cost)
     val_new = torch.where(move, valc[lanes, sel], val)
 
-    # Levenberg adaptation, trust-region style: actual vs predicted
-    # decrease along the step (the first-order term decc stands in)
+    # Levenberg adaptation: full steps trust the model more, backtracked
+    # or failed steps damp harder
     stepping = (~inner_done) & (~done)
-    pred = torch.clamp(-0.5 * decc[lanes, sel], min=1e-12)
-    ratio = (val - val_new) / pred
-    lm_step = torch.where(
-        ~ls_ok | bad_dir, torch.clamp(lm * 10.0, max=cfg.lm_max),
-        torch.where(
-            ratio > 0.75, torch.clamp(lm * 0.33, min=cfg.lm_min),
-            torch.where(ratio < 0.25,
-                        torch.clamp(lm * 3.0, max=cfg.lm_max), lm),
-        ),
-    )
+    fail = ~ls_ok | bad_dir
+    if cfg.lm_rule == "ratio":
+        # trust-region style: actual vs predicted decrease along the step
+        # (the first-order term decc stands in)
+        pred = torch.clamp(-0.5 * decc[lanes, sel], min=1e-12)
+        ratio = (val - val_new) / pred
+        lm_step = _lm_update(cfg, lm, fail, ratio > 0.75, ratio < 0.25,
+                             cap_growth=True)
+    else:
+        lm_step = _lm_update(cfg, lm, fail, nsteps_ls <= 1.0,
+                             nsteps_ls > 3.0, cap_growth=False)
     lm = torch.where(stepping, lm_step, lm)
+    # the nonmonotone reference update (Zhang-Hager averaging)
+    if cfg.ls_eta > 0.0:
+        Qn = cfg.ls_eta * Q + 1.0
+        Cn = (cfg.ls_eta * Q * C + val_new) / Qn
+        C = torch.where(stepping, Cn, C)
+        Q = torch.where(stepping, Qn, Q)
     improved = (ref - val_new) > cfg.stall_tol * (1.0 + torch.abs(ref))
+    if cfg.ls_deep_round > 0:
+        # a deep accepted step reads as stall evidence
+        improved = improved & (exp_sel < cfg.ls_deep_round)
     noprog = torch.where(
         stepping,
         torch.where(improved, torch.zeros_like(noprog), noprog + 1),
@@ -716,9 +809,10 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
 
     # ---- outer (AL round) transition on inner_done lanes
     u = inner_done & (~done_prev)
-    lam_def = _sel(u, lam_def + rho[:, None, None] * cd, lam_def)
-    lam_eq = _sel(u, lam_eq + rho[:, None, None] * ce, lam_eq)
-    mu = _sel(u, torch.clamp(mu + rho[:, None, None] * g, min=0.0), mu)
+    drho = (cfg.dual_relax * rho)[:, None, None]
+    lam_def = _sel(u, lam_def + drho * cd, lam_def)
+    lam_eq = _sel(u, lam_eq + drho * ce, lam_eq)
+    mu = _sel(u, torch.clamp(mu + drho * g, min=0.0), mu)
     # grow the penalty only while actually infeasible
     grow = u & (viol > cfg.viol_decrease * viol_prev) & (viol > cfg.tol_cons)
     rho_new = torch.where(
@@ -737,14 +831,34 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
     o_it = o_it + u.to(o_it.dtype)
     in_it = torch.where(u, torch.zeros_like(in_it), in_it)
     noprog = torch.where(u, torch.zeros_like(noprog), noprog)
+    # a new round: the multiplier update moved the AL surface, so the
+    # nonmonotone reference starts again
+    C = torch.where(u, torch.full_like(C, float("inf")), C)
+    Q = torch.where(u, torch.ones_like(Q), Q)
     viol_ref = torch.where(u, viol, viol_ref)
 
     return dict(
         Z=Znew, cd=cd_n, ce=ce_n, g=g_n, cost=cost_n, lam_def=lam_def,
         lam_eq=lam_eq, mu=mu, rho=rho, omega=omega, lm=lm,
-        viol_prev=viol_prev, viol_ref=viol_ref, noprog=noprog, in_it=in_it,
-        o_it=o_it, tot=st["tot"] + 1, done=done, pgn=pgn, **chord,
+        viol_prev=viol_prev, C=C, Q=Q, viol_ref=viol_ref, noprog=noprog,
+        in_it=in_it, o_it=o_it, tot=st["tot"] + 1, done=done, pgn=pgn,
+        **chord,
     )
+
+
+def _lm_update(cfg: SolverConfig, lm, fail, good, poor, cap_growth):
+    """The Levenberg damping after a step: x10 (capped at lm_max) where
+    the line search or the direction failed, x0.33 (floored at lm_min) on
+    a ``good`` step, x3 on a ``poor`` one. The ratio rule caps the x3
+    (``cap_growth``) and the count rule does not, as in the JAX
+    package."""
+    grow = lm * 3.0
+    if cap_growth:
+        grow = torch.clamp(grow, max=cfg.lm_max)
+    return torch.where(
+        fail, torch.clamp(lm * 10.0, max=cfg.lm_max),
+        torch.where(good, torch.clamp(lm * 0.33, min=cfg.lm_min),
+                    torch.where(poor, grow, lm)))
 
 
 def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
@@ -764,8 +878,11 @@ def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
     lam_def0, lam_eq0, mu0 = lam0
     Z0 = torch.clamp(z0.reshape(B, F.K, F.w), F.lb, F.ub)
     max_total = cfg.max_total or cfg.max_outer * cfg.max_inner
-    nls = max(min(cfg.ls_grid, len(_LS_EXPONENTS)), 1)
-    exps = torch.tensor(_LS_EXPONENTS[:nls], dtype=dtype, device=dev)
+    # the line search's exponents: an explicit grid, or the first ls_grid
+    exps = torch.tensor(
+        tuple(cfg.ls_exponents) or _LS_EXPONENTS[
+            : max(min(cfg.ls_grid, len(_LS_EXPONENTS)), 1)],
+        dtype=dtype, device=dev)
 
     cd0, ce0, g0 = F.residuals(Z0)
 
@@ -779,7 +896,8 @@ def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
     st = dict(
         Z=Z0, cd=cd0, ce=ce0, g=g0, cost=F.cost(Z0), lam_def=lam_def0,
         lam_eq=lam_eq0, mu=mu0, rho=rho0, omega=full(cfg.inner_tol0),
-        lm=full(cfg.lm0), viol_prev=full(inf), viol_ref=full(inf),
+        lm=full(cfg.lm0), viol_prev=full(inf), C=full(inf), Q=full(1.0),
+        viol_ref=full(inf),
         noprog=full(0, torch.int32), in_it=full(0, torch.int32),
         o_it=full(0, torch.int32), tot=full(0, torch.int32),
         done=full(False, torch.bool), pgn=full(inf),

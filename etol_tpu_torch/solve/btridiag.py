@@ -141,3 +141,16 @@ def solve_refined(D, O, r):
     x = solve_factored(L_diag, L_sub, r)
     resid = r - matvec(D, O, x)
     return x + solve_factored(L_diag, L_sub, resid)
+
+
+def to_dense(D: torch.Tensor, O: torch.Tensor) -> torch.Tensor:
+    """The dense [K*w, K*w] matrix of one system D [K,w,w], O [K-1,w,w]
+    (testing only)."""
+    K, w, _ = D.shape
+    H = D.new_zeros((K * w, K * w))
+    for k in range(K):
+        H[k * w:(k + 1) * w, k * w:(k + 1) * w] = D[k]
+    for k in range(K - 1):
+        H[k * w:(k + 1) * w, (k + 1) * w:(k + 2) * w] = O[k]
+        H[(k + 1) * w:(k + 2) * w, k * w:(k + 1) * w] = O[k].T
+    return H

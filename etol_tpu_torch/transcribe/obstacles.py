@@ -90,6 +90,13 @@ def halfspace_margins(p, obs: ObstacleData):
     return torch.where(obs.piece_mask > 0, m, -big[..., 0])
 
 
+def inside_any_piece(p, obs: ObstacleData):
+    """Boolean: is ``p`` strictly inside any convex obstacle piece? (The
+    reference's ValidityChecker, eOMPL.cpp:95-111, over the convex
+    partition.)"""
+    return torch.any(halfspace_margins(p, obs) > 0)
+
+
 def piece_values(p, obs: ObstacleData, tau: float = 0.05):
     """Smooth conservative containment value per convex piece, [P]:
     ``g_j = softmin_tau(margins) + tau*log(H)``, an overestimate of the

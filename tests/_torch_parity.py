@@ -63,3 +63,30 @@ def blocks_both(jn, jd, tn, td, hessian="defect", seed=3):
     return tD[0].numpy(), tO[0].numpy(), np.asarray(jD), np.asarray(jO)
 
 
+
+
+def uas_batch(B=8, seed=0, nsteps=12):
+    """Both packages' uas_2d (pieces containment, ``nsteps`` of 0.4 s to a
+    near goal) on the same batch of B problems whose starts and goals are
+    scattered by a seeded numpy draw: (jnlp, jdata, tnlp, tdata)."""
+    import dataclasses
+
+    from etol_tpu.core import problem as jproblem
+    from etol_tpu.models import problems as jproblems
+    from etol_tpu_torch.models import problems as tproblems
+
+    kw = dict(nsteps=nsteps, dt=0.4, xf=(4.0, 3.0, 0.0))
+    jv, jnlp = jproblems.uas_2d(**kw)
+    jnlp = dataclasses.replace(jnlp, obstacle_form="pieces")
+    _, tnlp = tproblems.uas_2d(**kw)
+    tnlp = dataclasses.replace(tnlp, obstacle_form="pieces")
+    jdata, _ = jv.to_device()
+    rng = np.random.default_rng(seed)
+    off = np.zeros((2, B, 3), np.float32)
+    off[:, :, :2] = rng.uniform(-0.5, 0.5, size=(2, B, 2))
+    jb = jproblem.batch_tile(jdata, B)
+    jb = dataclasses.replace(jb, x0=jnp.asarray(off[0]),
+                             xf=jb.xf + jnp.asarray(off[1]))
+    tb = tproblem.vgpdata_from_numpy(
+        [np.asarray(a) for a in jax.tree.leaves(jb)], device="cpu")
+    return jnlp, jb, tnlp, tb

@@ -83,14 +83,17 @@ def _torch_solve(model):
 
 @pytest.mark.parametrize("model", MODELS + ["uas_2d"])
 def test_registry_matches_the_jax_registry(model):
-    """The port's entry is the JAX package's minus the two keys that have
-    no field here (``ls_backtracks``; ``lm_rule``, always "ratio")."""
+    """The port's entry is the JAX package's, field for field
+    (``ls_backtracks`` and ``lm_rule`` included)."""
     overrides, stages = jtuned._TUNED[model]
     jcfg = jal.SolverConfig(kkt_solver="scan", **overrides)
-    assert jcfg.lm_rule == "ratio" and jcfg.hessian == "defect"
+    assert jcfg.ls_backtracks == 16 and jcfg.hessian == "defect"
     tcfg, tstages = ttuned.tuned_config(model, kkt_solver="scan")
+    assert [f.name for f in dataclasses.fields(tcfg)] == [
+        f.name for f in dataclasses.fields(jcfg)]
     for f in dataclasses.fields(tcfg):
         assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    assert ttuned._TUNED[model][0] == overrides
     assert tstages == stages
     assert ttuned.tuned_config(model, batch=64)[1] == jtuned.tuned_config(
         model, batch=64, kkt_solver="scan")[1]

@@ -53,8 +53,7 @@ def _configs():
     for f in dataclasses.fields(tcfg):
         if f.name != "kkt_solver":
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
-    # what the port has as its only Levenberg rule, the JAX config selects
-    assert (jcfg.hessian, jcfg.lm_rule) == (tcfg.hessian, "ratio")
+    assert (jcfg.hessian, jcfg.lm_rule) == (tcfg.hessian, tcfg.lm_rule)
     jstages = tuple((max(B // dv, 1), bd) for dv, bd in stages)
     assert tstages == jstages
     return jcfg, tcfg, jstages
@@ -168,6 +167,8 @@ def test_staged_solve_outcomes_match():
 
 
 def test_unported_config_raises():
+    """Every knob of the JAX package's config exists with its default;
+    a value outside a knob's vocabulary raises ValueError."""
     # cyclic reduction, the separable assembly and the chord steps exist
     cfg = tal.SolverConfig(kkt_solver="cr", chord_steps=2,
                            sep_assembly=False)
@@ -179,10 +180,21 @@ def test_unported_config_raises():
         tal.SolverConfig(kkt_solver="pallas")
     with pytest.raises(ValueError):
         tal.SolverConfig(chord_steps=-1)
-    for knob in ("lm_rule", "ls_eta", "ls_rule", "dual_relax",
-                 "ls_deep_round", "ls_exponents", "ls_backtracks"):
-        with pytest.raises(TypeError):
-            tal.SolverConfig(**{knob: 1})
+    # the line-search and Levenberg variants: JAX's defaults, and they
+    # take JAX's values
+    knobs = ("lm_rule", "ls_eta", "ls_rule", "dual_relax",
+             "ls_deep_round", "ls_exponents", "ls_backtracks")
+    for knob in knobs:
+        assert getattr(tal.SolverConfig(), knob) == getattr(
+            jal.SolverConfig(), knob), knob
+    cfg = tal.SolverConfig(lm_rule="count", ls_eta=0.85, ls_rule="best",
+                           dual_relax=1.6, ls_deep_round=12,
+                           ls_exponents=(0, 1, 2, 4), ls_backtracks=16)
+    assert (cfg.lm_rule, cfg.ls_rule, cfg.ls_backtracks) == (
+        "count", "best", 16)
+    for knob in ("ls_rule", "lm_rule"):
+        with pytest.raises(ValueError):
+            tal.SolverConfig(**{knob: "greedy"})
     # the Hessian variants exist; anything else is refused
     assert tal.SolverConfig(hessian="gn").hessian == "gn"
     with pytest.raises(ValueError):
