@@ -12,23 +12,27 @@ result line:
 1. device  — CUDA must be available; the card's name and power limit;
 2. build   — compile the KKT kernel (``etol_tpu_torch/csrc/bt_solve.cu``)
              with nvcc from this checkout and load it;
-3. kernel  — both kernels of the source (the shared-memory one the main
-             path launches, and the device-memory one kept for long
-             horizons) against the plain PyTorch version on the card at
-             every (K, w, batch) that a later phase gives the kernel (the
-             full batches and the stage batches of the main path, of the
-             ladder's models and of the B=64 A/Bs, taken from the
-             registry) and at ragged batches; a later phase fails if it
+3. kernel  — the two kernels of the source (the shared-memory one the
+             paths launch wherever a lane's factor fits a block, and the
+             stream one they launch for longer horizons) against the
+             plain PyTorch version on the card, each where it takes the
+             shape, at every (K, w, batch) that a later phase gives the
+             kernel (the full batches and the stage batches of the main
+             path, of the ladder's models and of the B=64 A/Bs, taken from
+             the registry), at the stream kernel's horizons (K=2048 at
+             B=1, each side of the switch at w = 4, 5, 9, batched long
+             horizons) and at ragged batches, each shape's planned kernel
+             printed; a later phase fails if it
              launched the kernel at a shape not checked here; a lane with
              an indefinite block must come out
              non-finite and leave the others alone; then, at the main
-             path's four batch sizes and the ladder's full batches, both
-             kernels in turns and
+             path's four batch sizes, the ladder's full batches and every
+             timed shape, the kernels in turns and
              the plain version timed with CUDA events over rotating
              inputs (the kernels as replays of a CUDA graph of
              launches), beside the bound from the shapes and a dense
              ``torch.linalg.solve`` of the assembled systems as the
-             library yardstick, and the same at the facade's shapes;
+             library yardstick where that batch is under 8 GB;
 4. main    — the port's main path on the default device: ``uas_2d`` N=50,
              B=2048, shooting seeds, the staged cold solve, the obstacle
              audit, and the warm fleet re-solve on x0 + 0.01; the kernel's
@@ -95,11 +99,16 @@ result line:
              (``parallel.kkt.make_solver`` over n slabs, one launch for
              the slabs' interiors with their 2w+1 columns as lanes and one
              for the separators) at B=1, w=5, K in SPIKE_K and n in
-             SPIKE_N against the direct launch and the plain version
+             SPIKE_N against the direct launch (the stream kernel at
+             K=2048) and the plain version
              (max |dx|, host ms with a sync); ``dryrun_multichip(8)`` on
              the card (a batch-sharded tiny uas_2d, warm ticks, a K=512
              obstacle solve horizon-sharded over 8 slabs against the
-             unsharded one, the sharded evaluators); ``cli fleet_batch
+             unsharded one, the sharded evaluators); the dry run's
+             long-horizon problem at K=2048 solved unsharded (every KKT
+             solve the stream kernel at (2048, 4, 1)) and horizon-sharded
+             over 8 slabs, both SOLVED and held to each other as the dry
+             run holds K=512; ``cli fleet_batch
              512`` in-process; two subprocess ranks on this card over gloo
              (``python -m etol_tpu_torch.parallel.distributed``, loading
              the library this process built) whose gathered objectives
@@ -198,6 +207,10 @@ MIP_TOL, COMPOSED_TOL, MIP_ROUTE_TOL = 7e-3, 1e-3, 2e-3
 SPIKE_K, SPIKE_N, SPIKE_W, SPIKE_REPS = (512, 2048), (8, 32), 5, 20
 DRYRUN_N, DRYRUN_NSTEPS = 8, 511
 FLEET_BATCH_B = 512
+# the long-horizon step of the parallel phase: the dry run's problem at
+# K = LONG_NSTEPS + 1 nodes, unsharded (every KKT solve one launch of the
+# stream kernel at (K, 4, 1)) and horizon-sharded over DRYRUN_N slabs
+LONG_NSTEPS = 2047
 DIST_RANKS, DIST_B = 2, 8
 
 
@@ -236,22 +249,36 @@ PARALLEL_SHAPES = tuple(dict.fromkeys(
     + [(DRYRUN_NSTEPS + 1, 4, 1), (8, 5, 8), (51, 5, FLEET_BATCH_B),
        (21, 6, DIST_B), (21, 6, DIST_B // DIST_RANKS)]
     + list(spike_shapes(16, 3, DIST_RANKS, slabs=1))
-    + list(spike_shapes(16, 4, DIST_RANKS, slabs=1)) + [(16, 4, 1)]))
-TIMED_SHAPES = (MAIN_SHAPES + LADDER_SHAPES + FACADE_SHAPES + (B1_SHAPE,)
-                + tuple(s for s in EXACT_SHAPES if s not in FACADE_SHAPES)
-                + FLEET_SHAPES
-                + tuple(s for s in PARALLEL_SHAPES if s != B1_SHAPE)
-                + (NEWTON_SHAPE,))
+    + list(spike_shapes(16, 4, DIST_RANKS, slabs=1)) + [(16, 4, 1)]
+    + [(LONG_NSTEPS + 1, 4, 1)]
+    + list(spike_shapes(LONG_NSTEPS + 1, 4, DRYRUN_N))
+    + [(K, SPIKE_W, 1) for K in SPIKE_K]))
+# the stream kernel's horizons (the lane factor past a block's shared
+# memory), checked and timed though no path runs some of them: the long
+# B=1 solves, each side of the switch at w = 4, 5, 9, batched long horizons
+LONG_SHAPES = ((2048, 4, 1), (2048, 5, 1), (2047, 5, 1),
+               (1614, 4, 8), (1615, 4, 8), (1076, 5, 8), (1077, 5, 8),
+               (387, 9, 8), (388, 9, 8),
+               (1077, 5, 64), (388, 9, 256), (2048, 5, 64))
+TIMED_SHAPES = tuple(dict.fromkeys(
+    MAIN_SHAPES + LADDER_SHAPES + FACADE_SHAPES + (B1_SHAPE,)
+    + tuple(s for s in EXACT_SHAPES if s not in FACADE_SHAPES)
+    + FLEET_SHAPES
+    + tuple(s for s in PARALLEL_SHAPES if s != B1_SHAPE)
+    + (NEWTON_SHAPE,) + LONG_SHAPES + ((2048, 5, 3),)))
 # batches that are no multiple of the lanes a block takes
-RAGGED_SHAPES = ((51, 5, 3), (41, 6, 7), (21, 6, 1000))
+RAGGED_SHAPES = ((51, 5, 3), (41, 6, 7), (21, 6, 1000), (2048, 5, 3))
 TIMED_SET_BYTES = 100 * 2 ** 20
 # launches recorded into the CUDA graph that times a kernel
 TIMED_INNER = 10
 # single calls of the plain version timed at each shape (0.07-0.8 s each)
 PLAIN_REPS = 3
-# the two kernels of bt_solve.cu: a lane across w threads with the factor
-# in shared memory, and one thread a lane with the factor in device memory
-VARIANTS = ("smem", "global")
+# the two kernels of bt_solve.cu: a lane across w threads with the
+# factor in shared memory, and the same with the factor in device memory
+# (streamed back through shared memory)
+VARIANTS = ("smem", "stream")
+# a dense [B, K w, K w] batch above this is not built for the library time
+DENSE_MAX_BYTES = 8e9
 # published peaks of one H100 SXM: device memory rate, float32 outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -439,15 +466,33 @@ def assert_checked(path, launches_by):
             "did not compare with the plain version")
 
 
-def compare(torch, bt_cuda, btridiag, K, w, B, seed):
-    """Both kernel variants against the plain version at one shape;
-    returns the larger max |x_kernel - x_plain|."""
-    D, O, r = spd_problem(torch, B, K, w, seed=seed)
+def takes(bt_cuda, variant, K, w, B):
+    """Whether the kernel ``variant`` can take a (K, w, B) solve (the
+    shared-memory kernel only where one lane's factor fits a block)."""
+    try:
+        bt_cuda.plan(K, w, B, variant)
+    except ValueError:
+        return False
+    return True
+
+
+def compare(torch, bt_cuda, btridiag, K, w, B, seed, inputs=None):
+    """Every kernel variant that takes the shape against the plain version
+    at one shape, on ``inputs`` (D, O, r) or on systems made from
+    ``seed``; returns (the larger max |x_kernel - x_plain|, the plain
+    call's host milliseconds with a sync)."""
+    D, O, r = inputs or spd_problem(torch, B, K, w, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     xp = btridiag.solve_refined(D, O, r)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     scale = float(xp.abs().max())
     res_p = float((r - btridiag.matvec(D, O, xp)).abs().max())
     worst = 0.0
     for variant in VARIANTS:
+        if not takes(bt_cuda, variant, K, w, B):
+            continue
         xk = bt_cuda.solve(D, O, r, variant=variant)
         torch.cuda.synchronize()
         err = float((xk - xp).abs().max())
@@ -464,7 +509,7 @@ def compare(torch, bt_cuda, btridiag, K, w, B, seed):
                 f"{variant} kernel residual {res_k} > plain {res_p}")
         worst = max(worst, err)
     CHECKED.add((K, w, B))
-    return worst
+    return worst, plain_ms
 
 
 def check_indefinite(torch, bt_cuda):
@@ -491,67 +536,99 @@ def check_indefinite(torch, bt_cuda):
 
 
 def check_kernel(torch, bt_cuda, btridiag, shapes):
-    """Phase 3: both kernels vs plain on the card at ``shapes`` and the
-    ragged ones, then the timings at the main path's and the ladder's
-    full batches and the facade's shapes; returns (max_abs_err, times)
-    with times[(K, w, B)] = dict(smem, global, plain, library, bound,
-    bound_by)."""
+    """Phase 3: every kernel that takes a shape vs plain on the card at
+    ``shapes`` (those the paths run), the stream kernel's horizons and the
+    ragged ones, then the timings at TIMED_SHAPES (a timed shape past
+    K=200 is checked there, on the first of its timed input sets, so that
+    its one timed call of the plain version is on those sets too);
+    returns (max_abs_err, times) with times[(K, w, B)] = dict(smem (None
+    where it cannot take the shape), stream, plain, library (None where
+    the dense batch is too large), bound, bound_by, variant)."""
     global CHECKED
     CHECKED = set()
     worst = 0.0
-    if not set(TIMED_SHAPES) <= set(shapes):
-        raise AssertionError("a timed shape is not one the paths run")
-    for i, (K, w, B) in enumerate(tuple(shapes) + RAGGED_SHAPES):
-        if bt_cuda.plan(K, w, B).variant != "smem":
-            raise AssertionError(f"{(K, w, B)} is not planned for the "
-                                 "shared-memory kernel")
-        worst = max(worst, compare(torch, bt_cuda, btridiag, K, w, B,
-                                   seed=K + w + i))
+    checked = tuple(dict.fromkeys(tuple(shapes) + LONG_SHAPES
+                                  + RAGGED_SHAPES))
+    if not set(TIMED_SHAPES) <= set(checked):
+        raise AssertionError("a timed shape is not one phase 3 checks")
+    for i, (K, w, B) in enumerate(checked):
+        say("kernel", f"K={K} w={w} B={B}: planned "
+                      f"{bt_cuda.plan(K, w, B).variant}")
+        if K > 200 and (K, w, B) in TIMED_SHAPES:
+            continue
+        err, _ = compare(torch, bt_cuda, btridiag, K, w, B, seed=K + w + i)
+        worst = max(worst, err)
     check_indefinite(torch, bt_cuda)
 
     times = {}
     for K, w, B in TIMED_SHAPES:
         sets = spd_problem_sets(torch, B, K, w, seed=B)
         n = len(sets)
-        t = {}
-        # in turns within one process on one card: new, old, old, new
+        long_k = K > 200
+        t = {"variant": bt_cuda.plan(K, w, B).variant}
+        if long_k:
+            # the check, and the plain version's one timed call (1.4 s at
+            # K=511, 5 s at K=2048), on the first timed set
+            err, plain_ms = compare(torch, bt_cuda, btridiag, K, w, B,
+                                    seed=None, inputs=sets[0])
+            worst = max(worst, err)
+        # in turns within one process on one card: the shared-memory
+        # kernel, the stream kernel, the stream kernel, the shared-memory
+        # kernel (the stream kernel twice where the other cannot take the
+        # shape); past K=200 a launch takes milliseconds and a graph of 2
+        # launches, 5 replays, does
+        order = ["stream", "stream"]
+        if takes(bt_cuda, "smem", K, w, B):
+            order = ["smem"] + order + ["smem"]
         runs = []
-        for variant in ("smem", "global", "global", "smem"):
+        for variant in order:
             runs.append((variant, graph_ms(
                 torch,
                 lambda i, v=variant: bt_cuda.solve(*sets[i % n], variant=v),
-                inner=TIMED_INNER,
+                reps=5 if long_k else 20,
+                inner=2 if long_k else TIMED_INNER,
             )))
         for variant in VARIANTS:
             both = [ms for v, ms in runs if v == variant]
-            t[variant] = sum(both) / len(both)
-        # one call at the long horizons (1.4 s at K=511)
-        t["plain"] = median_ms(
+            t[variant] = sum(both) / len(both) if both else None
+        # past K=200, the checking call above; below, the median of
+        # PLAIN_REPS calls
+        t["plain"] = plain_ms if long_k else median_ms(
             torch, lambda i: btridiag.solve_refined(*sets[i % n]),
-            reps=PLAIN_REPS if K <= 200 else 1)
+            reps=PLAIN_REPS)
         # the nearest single PyTorch call: a dense solve of the assembled
         # [B, K w, K w] systems, no refinement; the assembly is not timed
         D, O, r = sets[0]
-        H = dense(torch, D, O)
-        rhs = r.reshape(B, K * w, 1)
-        t["library"] = median_ms(
-            torch, lambda i: torch.linalg.solve(H, rhs), reps=5)
-        xd = torch.linalg.solve(H, rhs).reshape(B, K, w)
-        err_d = float((xd - bt_cuda.solve(D, O, r)).abs().max())
-        del H, xd
+        if 4 * B * (K * w) ** 2 <= DENSE_MAX_BYTES:
+            H = dense(torch, D, O)
+            rhs = r.reshape(B, K * w, 1)
+            t["library"] = median_ms(
+                torch, lambda i: torch.linalg.solve(H, rhs),
+                reps=5 if not long_k else 3)
+            xd = torch.linalg.solve(H, rhs).reshape(B, K, w)
+            err_d = float((xd - bt_cuda.solve(D, O, r)).abs().max())
+            del H, xd
+            lib = (f"torch.linalg.solve on the dense [{B}, {K * w}, "
+                   f"{K * w}] systems (no refinement) {t['library']:.4f} "
+                   f"ms, median of {5 if not long_k else 3}, max|x_dense "
+                   f"- x_kernel| {err_d:.3e}")
+        else:
+            t["library"] = None
+            lib = (f"library not measured: the dense [{B}, {K * w}, "
+                   f"{K * w}] batch is {4 * B * (K * w) ** 2 / 1e9:.1f} GB")
+        torch.cuda.empty_cache()
         t["bound"], t["bound_by"], nbytes, flops = bound(K, w, B)
-        say("kernel", f"K={K} w={w} B={B} ({n} input sets in turn): "
+        say("kernel", f"K={K} w={w} B={B} (planned {t['variant']}; {n} "
+                      "input sets in turn): "
                       + ", ".join(f"{v} {ms:.4f} ms" for v, ms in runs)
                       + f", plain {t['plain']:.4f} ms (CUDA events: median "
-                        f"of 20 replays of a graph of {TIMED_INNER} "
-                        f"launches, plain of {PLAIN_REPS} single calls, one "
-                        f"above K=200); "
+                        f"of the replays of a graph of launches, "
+                        f"{5 if long_k else 20} x "
+                        f"{2 if long_k else TIMED_INNER}; plain: "
+                        f"{'one call on the first set, host clock' if long_k else f'median of {PLAIN_REPS} calls'}); "
                         f"bound {t['bound']:.6f} ms by "
                         f"{t['bound_by']} ({nbytes} B, {flops:.0f} flop); "
-                        f"torch.linalg.solve on the dense [{B}, {K * w}, "
-                        f"{K * w}] systems (no refinement) "
-                        f"{t['library']:.4f} ms, median of 5, max|x_dense "
-                        f"- x_kernel| {err_d:.3e}")
+                        + lib)
         times[(K, w, B)] = t
     return worst, times
 
@@ -1556,6 +1633,13 @@ def check_parallel(torch, bt_cuda, btridiag, cyclic_reduction):
                              f"should be the kernel, at {need}")
     out["dryrun"] = dry
 
+    # -- one long horizon: the dry run's problem at K = LONG_NSTEPS + 1,
+    # unsharded (every KKT solve one launch of the stream kernel) and
+    # horizon-sharded over DRYRUN_N slabs (shared-memory launches), held to
+    # each other as the dry run holds its K=512 pair
+    out["long_horizon"] = check_long_horizon(
+        torch, bt_cuda, cyclic_reduction, counts)
+
     # -- cli fleet_batch, in-process
     reset_counts(bt_cuda, cyclic_reduction)
     text = io.StringIO()
@@ -1620,6 +1704,70 @@ def check_parallel(torch, bt_cuda, btridiag, cyclic_reduction):
         found["max_abs_dobj"] = err
         ranks.append(found)
     out["distributed"] = dict(obj_single_process=obj, ranks=ranks)
+    return out
+
+
+def check_long_horizon(torch, bt_cuda, cyclic_reduction, counts):
+    """The parallel phase's long-horizon step: ``horizon_problem`` at K =
+    LONG_NSTEPS + 1 (w = 4, B = 1) solved by ``al_sqp.solve`` and by
+    ``solve_horizon_sharded`` over DRYRUN_N slabs, from the dry run's seed
+    and with its config; both must be SOLVED and agree within the dry
+    run's limits, every unsharded launch must be the stream kernel at (K,
+    4, 1) and every sharded one the shared-memory kernel at the slabs'
+    shapes. Returns the two runs' findings."""
+    from etol_tpu_torch.parallel import make_mesh
+    from etol_tpu_torch.parallel.dryrun import horizon_problem
+    from etol_tpu_torch.parallel.solve_sharded import solve_horizon_sharded
+    from etol_tpu_torch.solve import al_sqp
+    from etol_tpu_torch.solve.al_sqp import SolverConfig
+
+    K = LONG_NSTEPS + 1
+    nlp, data, z0 = horizon_problem(LONG_NSTEPS)
+    cfg = SolverConfig(max_total=900, tol_cons=3e-4)
+    mesh = make_mesh(["cuda"] * DRYRUN_N, axis_names=("horizon",))
+    want = {
+        "unsharded": {("stream", K, 4, 1)},
+        "sharded": {("smem",) + shape
+                    for shape in spike_shapes(K, 4, DRYRUN_N)},
+    }
+    out, res = {}, {}
+    for name in ("unsharded", "sharded"):
+        reset_counts(bt_cuda, cyclic_reduction)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "unsharded":
+            r = al_sqp.solve(nlp, cfg, data, z0)
+        else:
+            r = solve_horizon_sharded(nlp, cfg, data, mesh, z0=z0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, _, by = counts(f"long horizon {name}")
+        res[name] = r
+        out[name] = dict(
+            status=int(r.status), obj=float(r.obj),
+            trips=int(r.inner_iters), viol_eq=float(r.viol_eq),
+            viol_in=float(r.viol_in), seconds=seconds, launches=launches,
+            launches_by={"%s_K%d_w%d_B%d" % key: n
+                         for key, n in sorted(by.items())},
+            cr_solves=cyclic_reduction.SOLVES)
+        say("parallel", f"long horizon K={K} w=4 B=1 {name}: "
+                        f"{out[name]}")
+        if set(by) != want[name] or cyclic_reduction.SOLVES:
+            raise AssertionError(f"long horizon {name}: launches {by}, "
+                                 f"expected every one at {want[name]}")
+        if out[name]["status"] != 1:
+            raise AssertionError(f"long horizon {name}: status "
+                                 f"{out[name]['status']}, not SOLVED")
+    obj = out["unsharded"]["obj"]
+    dobj = abs(out["sharded"]["obj"] - obj)
+    dz = float((res["sharded"].z - res["unsharded"].z).abs().max())
+    say("parallel", f"long horizon K={K}: |dobj| {dobj:.3e} (limit "
+                    f"{1e-3 + 1e-3 * abs(obj):.3e}), max|dz| {dz:.3e} "
+                    "(limit 2e-2)")
+    if not (dobj < 1e-3 + 1e-3 * abs(obj) and dz < 2e-2):
+        raise AssertionError(f"long horizon: the sharded solve drifted "
+                             f"from the unsharded one: {dobj}, {dz}")
+    out.update(K=K, dobj=dobj, dz=dz)
     return out
 
 
@@ -1791,16 +1939,15 @@ def main(phases=PHASES):
                  f"{time.perf_counter() - t0:.2f} s")
     entry = None
     for line in bt_cuda.BUILD_LOG.splitlines():
-        m = re.search(r"bt_(solve|smem)_kernelILi(\d+)E", line)
+        m = re.search(r"bt_(smem|stream)_kernelILi(\d+)E", line)
         if m and "Compiling entry function" in line:
-            entry = f"{'global' if m.group(1) == 'solve' else 'smem'} " \
-                    f"W={m.group(2)}"
+            entry = f"{m.group(1)} W={m.group(2)}"
         elif entry and ("registers" in line or "spill" in line):
             info = line.replace("ptxas info    :", "").strip()
             say("build", f"{entry}: {info}")
     clock.lap("build")
 
-    # 3. both kernels vs plain, and their times
+    # 3. the kernels vs plain, and their times
     if "kernel" in phases:
         max_abs_err, times = check_kernel(
             torch, bt_cuda, btridiag, path_shapes(bench_scaling))
@@ -1950,6 +2097,9 @@ def main(phases=PHASES):
             "fleet_batch": fleet_out["batch"]["launches"],
             "parallel_spike": par["spike_launches"],
             "parallel_dryrun": par["dryrun"]["launches"],
+            "long_horizon": par["long_horizon"]["unsharded"]["launches"],
+            "long_horizon_sharded":
+                par["long_horizon"]["sharded"]["launches"],
             "cli_fleet_batch": par["fleet_batch"]["launches"],
             **{f"distributed_rank{r['rank']}": r["launches"]
                for r in par["distributed"]["ranks"]},
@@ -1958,18 +2108,25 @@ def main(phases=PHASES):
             **{f"variants_ocp_{name}": run["launches"]
                for name, run in var["ocp"].items()},
             "variants_newton_step": var["newton_step"]["launches"]},
+        "launches_by_variant": {
+            "main": variant_counts(launches_by),
+            "long_horizon": variant_counts(
+                par["long_horizon"]["unsharded"]["launches_by"]),
+            "long_horizon_sharded": variant_counts(
+                par["long_horizon"]["sharded"]["launches_by"])},
         "max_abs_err": max_abs_err,
         "ms": top["smem"],
-        "ms_global_scratch": top["global"],
+        "ms_stream": top["stream"],
         "plain_ms": top["plain"],
         "bound_ms": top["bound"],
         "bound_by": top["bound_by"],
         "library_ms": top["library"],
         "by_shape": {
             shape_key(shape): {
-                "ms": t["smem"], "ms_global_scratch": t["global"],
-                "plain_ms": t["plain"], "bound_ms": t["bound"],
-                "bound_by": t["bound_by"], "library_ms": t["library"]}
+                "planned": t["variant"], "ms": t["smem"],
+                "ms_stream": t["stream"], "plain_ms": t["plain"],
+                "bound_ms": t["bound"], "bound_by": t["bound_by"],
+                "library_ms": t["library"]}
             for shape, t in times.items()},
         "ladder": ladder,
         "b1_routes_ms": {str(K): row for K, row in b1.items()},
@@ -1985,6 +2142,16 @@ def main(phases=PHASES):
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def variant_counts(by):
+    """Launches by kernel variant, from a count by (variant, K, w, B), or
+    by its "variant_K.._w.._B.." names."""
+    out = {}
+    for key, n in by.items():
+        variant = key[0] if isinstance(key, tuple) else key.split("_")[0]
+        out[variant] = out.get(variant, 0) + n
+    return out
 
 
 def check_main(torch, out, launches, launches_by):

@@ -14,11 +14,13 @@ it launches the kernel or raises — there is no fallback. Node widths
 above 9 are an error here; the solver routes them to cyclic reduction
 from the width alone (``solve/al_sqp.py``), before any launch.
 
-The source holds two kernels and :func:`plan` chooses between them from
-(K, w) alone: the shared-memory kernel (a lane split across w threads of
-a warp, the factor in shared memory, the native layout) wherever one
-lane's factor fits a block's shared memory, and the device-memory kernel
-(one thread a lane, the factor in scratch arrays) for longer horizons.
+The source holds two kernels, and :func:`plan` chooses between them
+from (K, w) alone: the shared-memory kernel (a lane split across w
+threads of a warp, the factor in shared memory, the native layout)
+wherever one lane's factor fits a block's shared memory, and the stream
+kernel (the same lane split and node step, the factor in a device-memory
+scratch array, read back a chunk of nodes at a time through two buffers
+in shared memory) for longer horizons.
 """
 from __future__ import annotations
 
@@ -78,56 +80,71 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> str:
-    """Where the built library lives: keyed by the source and flags."""
-    with open(_SOURCE, "rb") as fh:
+def library_path(source: str = _SOURCE) -> str:
+    """Where the library built from ``source`` lives: keyed by the
+    source and flags."""
+    with open(source, "rb") as fh:
         h = hashlib.sha256(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(_BUILD_DIR, f"libbt_solve_{h.hexdigest()[:16]}.so")
 
 
+def compile_source(source: str = _SOURCE) -> tuple[str, str, float | None]:
+    """Compile ``source`` with NVCC_FLAGS when it is not built yet;
+    returns (library path, what nvcc printed, seconds it took; None when
+    it was built already)."""
+    path = library_path(source)
+    if os.path.exists(path):
+        return path, "", None
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    t0 = time.time()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:"
+                           f"\n{log}")
+    os.replace(tmp, path)
+    return path, log, time.time() - t0
+
+
+def load(path: str) -> ctypes.CDLL:
+    """A built library with its entry points' signatures set (those it
+    exports: a library built from an earlier source may lack one)."""
+    lib = ctypes.CDLL(path)
+    sigs = {
+        "etol_bt_solve_smem_f32":
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        "etol_bt_solve_stream_f32":
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    }
+    for name, args in sigs.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def build() -> ctypes.CDLL:
     """Compile (when not built yet) and load the kernel library."""
     global _LIB, BUILD_LOG, BUILD_SECONDS
-    if _LIB is not None:
-        return _LIB
-    path = library_path()
-    if not os.path.exists(path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.tmp{os.getpid()}"
-        t0 = time.time()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-            capture_output=True, text=True,
-        )
-        BUILD_SECONDS = time.time() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {_SOURCE}:\n{BUILD_LOG}"
-            )
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    fn = lib.etol_bt_solve_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p
-    ]
-    fn.restype = ctypes.c_int
-    fn = lib.etol_bt_solve_smem_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p
-    ]
-    fn.restype = ctypes.c_int
-    _LIB = lib
+    if _LIB is None:
+        path, BUILD_LOG, BUILD_SECONDS = compile_source()
+        _LIB = load(path)
     return _LIB
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How :func:`solve` launches one (K, w, B): ``variant`` "smem" or
-    "global", ``group`` threads a lane, ``lanes_per_block``, ``blocks``,
-    ``threads`` a block, and for "smem" the lane stride in floats and the
-    dynamic shared memory in bytes (0 for "global")."""
+    "stream", ``group`` threads a lane, ``lanes_per_block``, ``blocks``,
+    ``threads`` a block, the lane stride in floats of the lane's scratch
+    (shared memory for "smem", device memory for "stream"), the dynamic
+    shared memory in bytes (the lanes' scratch for "smem", their chunk
+    buffers for "stream"), and the device-memory scratch in bytes."""
 
     variant: str
     group: int
@@ -136,42 +153,73 @@ class Plan:
     threads: int
     lane_stride: int
     smem_bytes: int
+    scratch_bytes: int
+
+
+VARIANTS = ("smem", "stream")
+#: nodes a chunk of the stream kernel's read-back (``StreamLane::kChunk``
+#: in the source, which checks the buffers' bytes it is given)
+STREAM_CHUNK = 16
+
+
+def _p4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def lane_floats(K: int, w: int) -> int:
+    """Floats of one lane's scratch: K runs of a node's packed factor and
+    Lsub, each padded to 16 bytes, then y and c,
+    (p4(w(w+1)/2) + p4(w^2) + 2w) K."""
+    return (_p4(w * (w + 1) // 2) + _p4(w * w) + 2 * w) * K
 
 
 @functools.lru_cache(maxsize=256)
 def plan(K: int, w: int, B: int, variant: str | None = None) -> Plan:
     """The launch of a (K, w, B) solve, from the shape alone.
 
-    The shared-memory kernel keeps per lane the packed factor, Lsub, y
-    and c: (p4(w(w+1)/2) + p4(w^2) + 2w) K floats, where p4 rounds up to
-    a multiple of 4 so that a node's factor and its Lsub start on 16
-    bytes and are read four floats a load. The lane stride is an odd
+    Both lane-split kernels keep per lane the packed factor, Lsub, y and
+    c in the layout of :func:`lane_floats`: a node's factor and its Lsub
+    are one run on 16 bytes, read four floats a load. The shared-memory
+    kernel keeps it in shared memory at a lane stride that is an odd
     multiple of 4 floats, which puts the lanes of a block on different
-    banks. A block is one warp of 32 // w lanes, fewer where shared
-    memory holds fewer. Where not even one lane fits, the device-memory
-    kernel (one thread a lane, 64 a block) runs. ``variant`` forces one
-    of the two, for measurements."""
-    def p4(n):
-        return -(-n // 4) * 4
-
-    per_lane = (p4(w * (w + 1) // 2) + p4(w * w) + 2 * w) * K
-    stride = p4(per_lane)
-    stride += 4 * (stride // 4 % 2 == 0)
-    lanes = min(WARP // w, SMEM_LIMIT // (4 * stride))
+    banks; a block is one warp of 32 // w lanes, fewer where shared
+    memory holds fewer. Where not even one lane fits (w = 4 from K =
+    1615, w = 5 from 1077, w = 6 from 808, w = 8 from 501, w = 9 from
+    388), the stream kernel runs: 32 // w lanes a warp-sized block, the
+    scratch in device memory at a lane stride of p4(lane_floats) (B of
+    them, one ``torch.empty``), and two buffers a lane in shared memory,
+    each a chunk of STREAM_CHUNK nodes' factor and Lsub and their entries
+    of y or c. The switch stays where one lane no longer fits, also where
+    a block holds fewer lanes than 32 // w: the stream kernel is slower at
+    every shape the shared-memory kernel takes (``chip_smoke.py`` phase 3
+    on an H100: 0.334 against 0.223 ms at (255, 5, 88), 4 lanes a block;
+    1.69 against 1.06 ms at (1614, 4, 8), 0.76 against 0.59 ms at (387,
+    9, 8), one lane a block). ``variant`` forces one of the two, for
+    measurements."""
+    per_lane = lane_floats(K, w)
+    stride = _p4(per_lane)
+    odd = stride + 4 * (stride // 4 % 2 == 0)
+    lanes = min(WARP // w, SMEM_LIMIT // (4 * odd))
     if variant is None:
-        variant = "smem" if lanes >= 1 else "global"
+        variant = "smem" if lanes >= 1 else "stream"
     if variant == "smem":
         if lanes < 1:
             raise ValueError(
                 f"one lane's factor at K={K}, w={w} needs "
-                f"{4 * stride} bytes of shared memory, a block "
+                f"{4 * odd} bytes of shared memory, a block "
                 f"has {SMEM_LIMIT}"
             )
-        return Plan("smem", w, lanes, -(-B // lanes), WARP, stride,
-                    4 * lanes * stride)
-    if variant != "global":
+        return Plan("smem", w, lanes, -(-B // lanes), WARP, odd,
+                    4 * lanes * odd, 0)
+    if variant != "stream":
         raise ValueError(f"unknown variant {variant!r}")
-    return Plan("global", 1, 64, -(-B // 64), 64, 0, 0)
+    lanes = WARP // w
+    # each lane's two barriers (16 bytes), then its two chunk buffers:
+    # STREAM_CHUNK nodes' factor and Lsub, and two runs of y or c
+    node = _p4(w * (w + 1) // 2) + _p4(w * w)
+    ring = 4 + 2 * (STREAM_CHUNK * node + 2 * (STREAM_CHUNK * w + 4))
+    return Plan("stream", w, lanes, -(-B // lanes), WARP, stride,
+                4 * lanes * ring, 4 * B * stride)
 
 
 def _check(D, O, r):
@@ -208,7 +256,8 @@ def _check(D, O, r):
 def solve(D, O, r, variant: str | None = None):
     """x [B, K, w] with H x = r after one refinement pass. CPU tensors:
     the plain version; CUDA tensors: the kernel :func:`plan` names, or an
-    error. ``variant`` forces one of the two kernels, for measurements."""
+    error. ``variant`` forces one of the two kernels, for
+    measurements."""
     global LAUNCHES
     _check(D, O, r)
     if D.device.type == "cpu":
@@ -218,19 +267,9 @@ def solve(D, O, r, variant: str | None = None):
     B, K, w, _ = D.shape
     if B == 0:
         return torch.empty_like(r)
-    lib = build()
     pl = plan(K, w, B, variant)
-    with torch.cuda.device(D.device):
-        stream = torch.cuda.current_stream(D.device).cuda_stream
-        if pl.variant == "smem":
-            x = torch.empty_like(r)
-            rc = lib.etol_bt_solve_smem_f32(
-                D.data_ptr(), O.data_ptr(), r.data_ptr(), x.data_ptr(),
-                K, w, B, pl.lanes_per_block, pl.lane_stride, pl.smem_bytes,
-                stream,
-            )
-        else:
-            x, rc = _launch_global(lib, D, O, r, stream)
+    x = torch.empty_like(r)
+    rc = launch(build(), pl, D, O, r, x)
     if rc != 0:
         raise RuntimeError(f"bt_solve kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -239,24 +278,22 @@ def solve(D, O, r, variant: str | None = None):
     return x
 
 
-def _launch_global(lib, D, O, r, stream):
-    """The device-memory kernel: lane-minor copies [K, n, B] (neighbouring
-    threads, which are lanes, read neighbouring addresses) and the
-    factor's scratch arrays. Returns (x [B, K, w], cudaError)."""
+def launch(lib, pl: Plan, D, O, r, x) -> int:
+    """One launch of the kernel ``pl`` names from the library ``lib`` on
+    the current stream of D's device; returns its cudaError."""
     B, K, w, _ = D.shape
-    Dt = D.reshape(B, K, w * w).permute(1, 2, 0).contiguous()
-    Ot = O.reshape(B, K - 1, w * w).permute(1, 2, 0).contiguous()
-    rt = r.permute(1, 2, 0).contiguous()
-    x = torch.empty_like(rt)
-    lfac = torch.empty((K, w * (w + 1) // 2, B), dtype=D.dtype,
-                       device=D.device)
-    lsub = torch.empty((max(K - 1, 0), w * w, B), dtype=D.dtype,
-                       device=D.device)
-    y = torch.empty_like(rt)
-    c = torch.empty_like(rt)
-    rc = lib.etol_bt_solve_f32(
-        Dt.data_ptr(), Ot.data_ptr(), rt.data_ptr(), x.data_ptr(),
-        lfac.data_ptr(), lsub.data_ptr(), y.data_ptr(), c.data_ptr(),
-        K, w, B, stream,
-    )
-    return x.permute(2, 0, 1).contiguous(), rc
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream(D.device).cuda_stream
+        if pl.variant == "smem":
+            return lib.etol_bt_solve_smem_f32(
+                D.data_ptr(), O.data_ptr(), r.data_ptr(), x.data_ptr(),
+                K, w, B, pl.lanes_per_block, pl.lane_stride, pl.smem_bytes,
+                stream,
+            )
+        scratch = torch.empty(pl.scratch_bytes // 4, dtype=D.dtype,
+                              device=D.device)
+        return lib.etol_bt_solve_stream_f32(
+            D.data_ptr(), O.data_ptr(), r.data_ptr(), x.data_ptr(),
+            scratch.data_ptr(), K, w, B, pl.lane_stride, pl.smem_bytes,
+            stream,
+        )

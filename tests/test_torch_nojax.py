@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
 
 # every module of the port; a new module is added here with its slice
 MODULES = [
-    "__init__", "bench_harness", "bench_scaling", "cli", "optimizer",
+    "__init__", "bench_harness", "bench_scaling", "cli", "kernel_ab",
+    "optimizer",
     "core/__init__", "core/_native", "core/device", "core/geometry",
     "core/problem", "core/trajectory", "core/types", "core/xml_io",
     "io/__init__", "io/checkpoint", "io/lp_export", "io/lp_io",
