@@ -37,6 +37,23 @@ result line:
              B=2048, shooting seeds, the staged cold solve, the obstacle
              audit, and the warm fleet re-solve on x0 + 0.01; the kernel's
              launch count, by batch size, over exactly that run;
+4b. graph  — the solver loop captured as a CUDA graph
+             (``solve/trip_graph.py``) against the eager loop with a host
+             sync a trip: the main path's phase-1 cold solve (uas_2d N=50,
+             B=2048, the bench's seeds) eager, on the graph (its first use:
+             a warm-up trip and the capture), on the graph with the stop
+             flag read at once (lag 0) and a trip late (lag 1, the
+             default), and eager again; then ``run_mpc`` (GRAPH_MPC_STEPS
+             ticks, B=1) eager, on the graph and at lag 0. Statuses and
+             iterations equal and z, obj, multipliers and penalties
+             bitwise equal (else within GRAPH_TOL), the MPC's ticks one
+             capture; each side's trips, seconds, ms a trip, the card's
+             busy share (trips times one trip's replay time over the wall
+             time), captures, capture seconds and pool bytes. Every phase
+             runs on graphs (all but the horizon solve over ranks, a
+             collective) and ends with its captures, trips on graphs,
+             idle trips past a stop (each launches the kernel once, and
+             the launch checks count them) and eager trips;
 5. a/b     — B=64, N=50 cold solves with the kernel and with the plain
              "scan" KKT path, both on the card;
 6. cr      — cyclic reduction (plain torch ops, no kernel of its own)
@@ -300,8 +317,14 @@ MPC_STEPS, MPC_CR_STEPS = 10, 5
 # phase 9, fw100's warm A/B: the starts move by this much (km; the ladder
 # scatters them within 0.05), and a re-solve gets this many iterations
 WARM_DRIFT, WARM_BUDGET = 0.005, 60
-PHASES = ("kernel", "main", "a/b", "cr", "mpc", "bench", "ladder", "facade",
+PHASES = ("kernel", "main", "graph", "a/b", "cr", "mpc", "bench", "ladder", "facade",
           "exact", "planners", "fleet", "parallel", "variants")
+# the graph phase: replays a timed run of one trip's graph, and the
+# difference allowed between the graph's results and the eager loop's
+# where they are not bitwise equal
+GRAPH_REPS = 10
+GRAPH_TOL = 1e-6
+GRAPH_MPC_STEPS = 20
 # the planners phase: the planner-seeded solves, and the facade's budget
 # on ocp_2d_ex1.xml: 4 s, 8192 samples, a quarter of its problem-derived
 # 16 s (32768 samples, 511 trips a tree, 48 s of the phase on a slower
@@ -310,6 +333,10 @@ SEEDED = ("RRT", "SST", "PDST")
 FACADE_PLAN_SECONDS = 4.0
 
 CARD = None
+# the solver loop's module (etol_tpu_torch.solve.trip_graph), once built,
+# and its idle-trip count when the path's counts were last reset
+TG = None
+IDLE0 = 0
 
 
 def say(phase, msg):
@@ -322,12 +349,26 @@ class Clock:
 
     def __init__(self):
         self.start = self.last = time.perf_counter()
+        self.graphs = None
 
     def lap(self, phase):
         now = time.perf_counter()
         say(phase, f"phase took {now - self.last:.1f} s "
                    f"({now - self.start:.1f} s since the start)")
         self.last = now
+        if TG is not None:
+            c = dict(TG.COUNTS)
+            was = self.graphs or dict.fromkeys(c, 0)
+            say(phase, f"solver loop: {c['captures'] - was['captures']} "
+                       f"captures in {c['capture_s'] - was['capture_s']:.2f}"
+                       f" s, {c['trips'] - was['trips']} trips on graphs "
+                       f"({c['idle_trips'] - was['idle_trips']} of them "
+                       f"idle past the stop), "
+                       f"{c['eager_trips'] - was['eager_trips']} eager "
+                       f"trips; {len(TG._CACHE)} graphs cached, pools "
+                       f"{TG.pool_bytes()} bytes, static buffers "
+                       f"{TG.static_bytes()} bytes")
+            self.graphs = c
 
 
 def card_line():
@@ -724,6 +765,177 @@ def reset_counts(bt_cuda, cyclic_reduction):
     bt_cuda.LAUNCHES = 0
     bt_cuda.LAUNCHES_BY.clear()
     cyclic_reduction.SOLVES = 0
+    mark_idle()
+
+
+def mark_idle():
+    global IDLE0
+    IDLE0 = TG.COUNTS["idle_trips"]
+
+
+def idle():
+    """Trips run since the counts were last reset with every lane frozen,
+    past the stop of a captured loop (``trip_graph.LAG`` a solve): their
+    KKT solves launch, and count, with the others."""
+    return TG.COUNTS["idle_trips"] - IDLE0
+
+
+def trip_device_ms(torch, reps=GRAPH_REPS):
+    """The card's time for one trip of the most recently used key: its
+    graph replayed ``reps`` times back to back between two CUDA events.
+    The loop has ended, so these trips are frozen and change nothing; they
+    are not counted as launches of a path."""
+    graph = next(reversed(TG._CACHE.values())).graph
+    graph.replay()
+    torch.cuda.synchronize()
+    return _median_event_ms(torch, lambda: [
+        graph.replay() for _ in range(reps)], 3, reps)
+
+
+def graph_side(torch, bt_cuda, cyclic_reduction, label, run, route=None,
+               lag=None):
+    """``run()`` under ``trip_graph.override(route, lag)``, timed with the
+    host clock around work that ends in a sync; returns (its result, a
+    dict of its counts)."""
+    reset_counts(bt_cuda, cyclic_reduction)
+    c0 = dict(TG.COUNTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TG.override(route, lag):
+        out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = {k: TG.COUNTS[k] - c0[k] for k in c0}
+    side = dict(
+        wall_s=wall, trips=c["trips"] + c["eager_trips"],
+        idle_trips=c["idle_trips"], captures=c["captures"],
+        capture_s=c["capture_s"], launches=bt_cuda.LAUNCHES,
+        launches_by={"%s_K%d_w%d_B%d" % k: n
+                     for k, n in sorted(bt_cuda.LAUNCHES_BY.items())},
+        pool_bytes=TG.pool_bytes(), static_bytes=TG.static_bytes())
+    side["ms_a_trip"] = 1e3 * wall / max(side["trips"], 1)
+    assert_checked(f"graph {label}", bt_cuda.LAUNCHES_BY)
+    return out, side
+
+
+def same_result(torch, a, b, fields=("z", "obj", "lam_def", "lam_eq", "mu",
+                                     "rho", "grad_norm")):
+    """max |a - b| over the float fields (0.0 where bitwise equal) and
+    whether statuses and iteration counts are equal."""
+    diff = 0.0
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if not torch.equal(x, y):
+            diff = max(diff, float((x - y).abs().max()))
+    counts_equal = all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "status", "inner_iters", "outer_iters"))
+    return diff, counts_equal
+
+
+def check_graph(torch, bench_harness, bt_cuda, cyclic_reduction):
+    """Phase 4b: the solver loop captured as a CUDA graph against the
+    eager loop with a sync a trip: the main path's phase-1 cold solve
+    (uas_2d N=50, B=MAIN_B, the bench's seeds) eager, on the graph (its
+    key's first use: a warm-up trip and the capture), on the graph again
+    with the stop read at once (lag 0) and a trip late (lag 1), and eager
+    again; then ``bench_harness.run_mpc`` eager, on the graph, and on the
+    graph at lag 0. Results must be bitwise the eager loop's (else within
+    GRAPH_TOL); every side's trips, seconds, ms a trip, the card's busy
+    share (trips times one trip's replay time over the wall time),
+    captures, capture seconds and pool bytes are printed."""
+    from etol_tpu_torch.models.tuned import tuned_extras
+    from etol_tpu_torch.solve import al_sqp, shooting
+
+    out = {"main": {}, "mpc": {}}
+    nlp, cfg, _, data, gen = bench_harness.prepare(MAIN_B, MAIN_NSTEPS)
+    extras = tuned_extras("uas_2d")
+    z0 = shooting.plan_guess(nlp, data, extras["seed_walks"], gen,
+                             pulled=extras["seed_pulled"])
+
+    def phase1():
+        return al_sqp.solve_batched(nlp, cfg, data, z0)
+
+    sides = (("eager", "eager", None), ("graph_first", None, None),
+             ("graph_lag0", None, 0), ("graph", None, None),
+             ("eager_again", "eager", None))
+    results = {}
+    for name, route, lag in sides:
+        results[name], out["main"][name] = graph_side(
+            torch, bt_cuda, cyclic_reduction, f"main {name}", phase1,
+            route, lag)
+    dev_ms = trip_device_ms(torch)
+    ref = results["eager"]
+    for name, _, _ in sides:
+        side = out["main"][name]
+        side["device_ms_a_trip"] = dev_ms
+        side["busy"] = dev_ms * side["trips"] / (1e3 * side["wall_s"])
+        diff, counts_equal = same_result(torch, ref, results[name])
+        side.update(max_abs_diff=diff, counts_equal=counts_equal)
+        say("graph", f"main phase 1, uas_2d N={MAIN_NSTEPS} B={MAIN_B}, "
+                     f"{name}: {json.dumps(side)}")
+        if not counts_equal or not diff <= GRAPH_TOL:
+            raise AssertionError(
+                f"main phase 1 {name}: statuses or iterations differ from "
+                f"the eager loop's, or max |dz| {diff} > {GRAPH_TOL}")
+    g = out["main"]["graph"]
+    if out["main"]["graph_first"]["captures"] != 1 or g["captures"] or \
+            g["idle_trips"] != 1 or out["main"]["eager"]["captures"]:
+        raise AssertionError("the phase-1 solve should capture once, on "
+                             "its first graph run, and run one idle trip "
+                             "a later one")
+    trips = int(ref.inner_iters.max())
+    n_smem = sum(n for k, n in g["launches_by"].items()
+                 if k.startswith("smem_K51_w5_"))
+    if g["launches"] != trips + g["idle_trips"] or n_smem != g["launches"]:
+        raise AssertionError(
+            f"graph: {g['launches']} launches for {trips} trips and "
+            f"{g['idle_trips']} idle: every replay should count its one "
+            "launch of the shared-memory kernel")
+    say("graph", f"main phase 1: {trips} trips; eager "
+                 f"{out['main']['eager']['ms_a_trip']:.2f} ms a trip, graph "
+                 f"{g['ms_a_trip']:.2f} (lag 0: "
+                 f"{out['main']['graph_lag0']['ms_a_trip']:.2f}), the "
+                 f"card's own {dev_ms:.3f} ms a trip")
+
+    # -- the MPC re-solve: 20 ticks, one problem
+    nlp1, cfg1, _, _, _ = bench_harness.prepare(1, MAIN_NSTEPS)
+    single = bench_harness.single_problem(MAIN_NSTEPS)
+    mpc = {}
+    for name, route, lag in (("eager", "eager", None), ("graph", None, None),
+                             ("graph_lag0", None, 0)):
+        mpc[name], side = graph_side(
+            torch, bt_cuda, cyclic_reduction, f"mpc {name}",
+            lambda: bench_harness.run_mpc(nlp1, cfg1, single,
+                                          steps=GRAPH_MPC_STEPS),
+            route, lag)
+        side.update(p50_ms=mpc[name]["p50_ms"],
+                    pipelined_ms=mpc[name]["pipelined_ms"],
+                    statuses=mpc[name]["statuses"],
+                    iters=mpc[name]["iters"])
+        out["mpc"][name] = side
+    dev1 = trip_device_ms(torch)
+    for name, side in out["mpc"].items():
+        side["device_ms_a_trip"] = dev1
+        side["busy"] = dev1 * side["trips"] / (1e3 * side["wall_s"])
+        diff, counts_equal = same_result(torch, mpc["eager"]["cold"],
+                                         mpc[name]["cold"])
+        side.update(cold_max_abs_diff=diff, cold_counts_equal=counts_equal)
+        say("graph", f"mpc uas_2d N={MAIN_NSTEPS}, {GRAPH_MPC_STEPS} ticks, "
+                     f"{name}: {json.dumps(side)}")
+        if (side["statuses"] != out["mpc"]["eager"]["statuses"]
+                or side["iters"] != out["mpc"]["eager"]["iters"]
+                or not counts_equal or not diff <= GRAPH_TOL):
+            raise AssertionError(f"mpc {name}: statuses, iterations or the "
+                                 "cold result differ from the eager loop's")
+    if out["mpc"]["graph"]["captures"] != 1:
+        raise AssertionError(
+            f"the MPC run captured {out['mpc']['graph']['captures']} "
+            "graphs: its cold solve and every tick share one key")
+    say("graph", f"mpc p50: eager {out['mpc']['eager']['p50_ms']:.2f} ms, "
+                 f"graph {out['mpc']['graph']['p50_ms']:.2f} ms (lag 0: "
+                 f"{out['mpc']['graph_lag0']['p50_ms']:.2f}), one capture "
+                 f"for the cold solve and all {GRAPH_MPC_STEPS} ticks")
+    return out
 
 
 def check_mpc(torch, bench_harness, bt_cuda, cyclic_reduction):
@@ -833,6 +1045,7 @@ def check_ladder(torch, bench_scaling, bt_cuda):
             raise AssertionError(f"{name}: not the kernel on the card")
         bt_cuda.LAUNCHES = 0
         bt_cuda.LAUNCHES_BY.clear()
+        mark_idle()
         run = bench_scaling.run_config(
             label, nlp, bdata, cfg, stages, reps=0, generator=gen,
             log=lambda line: say("ladder", line))
@@ -845,8 +1058,10 @@ def check_ladder(torch, bench_scaling, bt_cuda):
                 f"{name}: solved {run['solved_fraction']} < 0.95")
         if not bool(torch.isfinite(res.z).all()):
             raise AssertionError(f"{name}: non-finite z")
-        # one KKT solve per Newton iteration (chord steps included)
-        if launches != sum(run["stage_trips"]) or any(
+        # one KKT solve per Newton iteration (chord steps included), and
+        # a trip's worth for each idle trip
+        idle_launches = idle() * (1 + cfg.chord_steps)
+        if launches != sum(run["stage_trips"]) + idle_launches or any(
                 key[:3] != ("smem", K, w) for key in by):
             raise AssertionError(
                 f"{name}: {launches} launches for stage trips "
@@ -966,7 +1181,7 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
             (X_back - X.cpu().double()).abs().max()) > 1e-6 or float(
             (t_back - times.cpu().double()).abs().max()) > 1e-6:
         raise AssertionError("the saved CSV does not read back")
-    if by != {("smem", 33, 4, 1): iters} or cr_solves:
+    if by != {("smem", 33, 4, 1): iters + idle()} or cr_solves:
         raise AssertionError(
             f"facade.solve(): {iters} iterations should be {iters} launches"
             f" of the shared-memory kernel at (33, 4, 1), and no cyclic "
@@ -1003,7 +1218,8 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
                       f"solves")
         if statuses != [SOLVED] * steps:
             raise AssertionError(f"mpc_step under {route}: {statuses}")
-        want = ((sum(its), 0) if route == "kernel" else (0, sum(its)))
+        n = sum(its) + idle()
+        want = ((n, 0) if route == "kernel" else (0, n))
         if (launches, cr_solves) != want or (
                 by and set(by) != {("smem", 33, 4, 1)}):
             raise AssertionError(
@@ -1205,7 +1421,8 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
         if mres.status != SOLVED or not mres.certified or not abs(
                 mres.obj - MIP_GOLDEN) <= MIP_TOL:
             raise AssertionError(f"exact mip under {route}: {f}")
-        want = ((mres.trips, 0) if route == "kernel" else (0, mres.trips))
+        n = mres.trips + idle()
+        want = ((n, 0) if route == "kernel" else (0, n))
         if (launches, cr_solves) != want or (
                 by and set(by) != {("smem",) + EXACT_SHAPES[0]}):
             raise AssertionError(
@@ -1254,7 +1471,8 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
             (X_back - X.cpu().double()).abs().max()) > 1e-6:
         raise AssertionError("the composed demo's trajectory does not "
                              "save and read back from the card")
-    if launches != mres.trips or set(by) != {("smem",) + EXACT_SHAPES[1]}:
+    if launches != mres.trips + idle() or set(by) != {
+            ("smem",) + EXACT_SHAPES[1]}:
         raise AssertionError(f"exact composed: {launches} launches {by} "
                              f"for {mres.trips} trips")
     out["composed"] = f
@@ -1372,7 +1590,8 @@ def check_planners(torch, bt_cuda, cyclic_reduction):
         on_card(f"{name}-seeded solve", res.z)
         if found["status"] != SOLVED:
             raise AssertionError(f"the {name}-seeded solve: {found}")
-        if by != {("smem",) + B1_SHAPE: iters} or found["cr_solves"]:
+        if by != {("smem",) + B1_SHAPE: iters + idle()} or \
+                found["cr_solves"]:
             raise AssertionError(
                 f"the {name}-seeded solve: {iters} iterations should be "
                 f"{iters} launches at {B1_SHAPE}, no cyclic reduction")
@@ -1460,7 +1679,8 @@ def check_fleet(torch, bt_cuda, cyclic_reduction):
         if found["status"] != SOLVED or found["goal_err"] > FLEET_GOAL_TOL \
                 or found["dmin"] < FLEET_DMIN:
             raise AssertionError(f"fleet V=3 under {route}: {found}")
-        if found["launches"] or found["cr_solves"] != found["iters"] or \
+        if found["launches"] or \
+                found["cr_solves"] != found["iters"] + idle() or \
                 found["iters"] <= 0:
             raise AssertionError(
                 f"fleet V=3 under {route}: w=12 should take cyclic "
@@ -1499,7 +1719,7 @@ def check_fleet(torch, bt_cuda, cyclic_reduction):
     if found["status"] != SOLVED or abs(found["obj"] / FLEET2_OBJ - 1) > \
             FLEET2_RTOL or found["dmin"] < FLEET_DMIN:
         raise AssertionError(f"fleet V=2: {found}")
-    if found["launches_by"] != {"K25_w8_B1": found["iters"]}:
+    if found["launches_by"] != {"K25_w8_B1": found["iters"] + idle()}:
         raise AssertionError(f"fleet V=2: launches {found['launches_by']}"
                              f" for {found['iters']} iterations")
     out["v2"] = found
@@ -1527,7 +1747,7 @@ def check_fleet(torch, bt_cuda, cyclic_reduction):
     if not found["solved_fraction"] >= 0.9 or not (
             found["min_dmin_solved"] >= FLEET_DMIN):
         raise AssertionError(f"the batch of fleets: {found}")
-    if found["launches_by"] != {f"K25_w8_B{batch}": trips}:
+    if found["launches_by"] != {f"K25_w8_B{batch}": trips + idle()}:
         raise AssertionError(f"the batch of fleets: launches "
                              f"{found['launches_by']} for {trips} trips")
     out["batch"] = found
@@ -1933,6 +2153,10 @@ def main(phases=PHASES):
     from etol_tpu_torch.ops import bt_cuda, cyclic_reduction
     from etol_tpu_torch.solve import btridiag
 
+    from etol_tpu_torch.solve import trip_graph
+
+    global TG
+    TG = trip_graph
     t0 = time.perf_counter()
     bt_cuda.build()
     say("build", f"bt_solve.cu built and loaded in "
@@ -1962,6 +2186,13 @@ def main(phases=PHASES):
         launches_by = dict(bt_cuda.LAUNCHES_BY)
         check_main(torch, out, launches, launches_by)
         clock.lap("main")
+
+    # 4b. the solver loop on a CUDA graph against the eager loop
+    if "graph" in phases:
+        graph = check_graph(torch, bench_harness, bt_cuda, cyclic_reduction)
+        print(json.dumps({"phase": "graph", "card": CARD, **graph}),
+              flush=True)
+        clock.lap("graph")
 
     # 5. in-situ A/B: kernel vs the plain scan path, same batch and seeds
     if "a/b" in phases:

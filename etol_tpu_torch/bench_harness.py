@@ -219,8 +219,9 @@ def run_mpc(nlp, cfg, data: VGPData, steps: int = 20,
     penalty. Two numbers: the median of the re-solves timed one by one
     with a device sync each (``p50_ms``), and ``steps`` re-solves
     dispatched back to back with one sync (``pipelined_ms`` a step; None
-    when ``pipelined`` is off). The solver loop itself syncs once per
-    Newton iteration, so the second saves only the last sync of each
+    when ``pipelined`` is off). The solver loop itself waits on the host
+    for each trip's stop flag (on a card a trip late, the trip a replay of
+    a captured graph), so the second saves only the last wait of each
     solve. ``statuses``, ``iters`` and ``finite`` are those of the
     one-by-one re-solves. The KKT route is ``cfg.kkt_solver``'s: under
     "kernel" every iteration launches the kernel at a batch of one."""
@@ -338,7 +339,7 @@ def bench(B: int = 2048, nsteps: int = 50, iters: int = 5,
     log(f"p50 warm MPC re-solve latency: {mpc['p50_ms']:.2f} ms (a device "
         f"sync after each); {mpc['pipelined_ms']:.2f} ms/step with "
         f"{len(mpc['statuses'])} dispatched back to back and one sync (the solver "
-        f"loop syncs once per Newton iteration either way); statuses "
+        f"loop waits for each trip's stop flag either way); statuses "
         f"{mpc['statuses']}")
 
     return {

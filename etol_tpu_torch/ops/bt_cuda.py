@@ -24,6 +24,7 @@ in shared memory) for longer horizons.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -37,11 +38,15 @@ import torch
 
 from ..solve import btridiag
 
-#: kernel launches made by :func:`solve` in this process; a run reads it
-#: to show that its KKT solves went through the kernel
+#: kernel launches made by :func:`solve` in this process, those a CUDA
+#: graph captured counted at each replay (:func:`replayed`); a run reads
+#: it to show that its KKT solves went through the kernel
 LAUNCHES = 0
 #: the same launches by (variant, K, w, batch size)
 LAUNCHES_BY = {}
+# open records of launches a CUDA graph's capture takes in (innermost
+# last): see recording()
+_RECORDS = []
 
 MAX_W = 9
 WARP = 32
@@ -253,12 +258,44 @@ def _check(D, O, r):
         raise ValueError("K must be at least 1")
 
 
+@contextlib.contextmanager
+def recording():
+    """Count the launches made inside into the dict it yields, by
+    (variant, K, w, batch size), and not into LAUNCHES: a CUDA graph's
+    capture records the kernel into the graph and runs nothing, so its
+    launches happen at each replay, where :func:`replayed` adds them."""
+    tally = {}
+    _RECORDS.append(tally)
+    try:
+        yield tally
+    finally:
+        _RECORDS.pop()
+
+
+def replayed(tally: dict, times: int = 1) -> None:
+    """Add the launches of a captured graph (``tally``, from
+    :func:`recording`) to LAUNCHES and LAUNCHES_BY for ``times``
+    replays."""
+    global LAUNCHES
+    for key, n in tally.items():
+        LAUNCHES += n * times
+        LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + n * times
+
+
+def _count(key) -> None:
+    """One launch at ``key``: into the innermost open record, else into
+    the counters."""
+    if _RECORDS:
+        _RECORDS[-1][key] = _RECORDS[-1].get(key, 0) + 1
+    else:
+        replayed({key: 1})
+
+
 def solve(D, O, r, variant: str | None = None):
     """x [B, K, w] with H x = r after one refinement pass. CPU tensors:
     the plain version; CUDA tensors: the kernel :func:`plan` names, or an
     error. ``variant`` forces one of the two kernels, for
     measurements."""
-    global LAUNCHES
     _check(D, O, r)
     if D.device.type == "cpu":
         return btridiag.solve_refined(D, O, r)
@@ -272,9 +309,7 @@ def solve(D, O, r, variant: str | None = None):
     rc = launch(build(), pl, D, O, r, x)
     if rc != 0:
         raise RuntimeError(f"bt_solve kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    key = (pl.variant, K, w, B)
-    LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + 1
+    _count((pl.variant, K, w, B))
     return x
 
 
@@ -290,6 +325,9 @@ def launch(lib, pl: Plan, D, O, r, x) -> int:
                 K, w, B, pl.lanes_per_block, pl.lane_stride, pl.smem_bytes,
                 stream,
             )
+        # under a CUDA graph's capture this comes from the graph's own
+        # memory pool and stays reserved for its replays, as every other
+        # tensor a captured trip makes does
         scratch = torch.empty(pl.scratch_bytes // 4, dtype=D.dtype,
                               device=D.device)
         return lib.etol_bt_solve_stream_f32(

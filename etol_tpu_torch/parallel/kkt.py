@@ -144,7 +144,10 @@ def make_solver(mesh, axis: str = "horizon", route: str = "kernel"):
     rows inside), r [B, K, w], or the same without the batch dim;
     K % mesh.shape[axis] == 0 with >= 2 nodes a slab. On a process mesh
     every rank passes the whole system, solves its slab and gets all of
-    x. ``route`` is "kernel" or "scan" (see the module's docstring)."""
+    x. ``route`` is "kernel" or "scan" (see the module's docstring). Its
+    ``graph_key`` names what it computes, so that a solver loop captured
+    as a CUDA graph with one serves the next made the same way
+    (``solve/trip_graph.py``)."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     ax = mesh.axis(axis)
@@ -170,4 +173,5 @@ def make_solver(mesh, axis: str = "horizon", route: str = "kernel"):
         x = ax.gather(x_loc, 1).reshape(B, K, w)
         return x[0] if single else x
 
+    global_solve.graph_key = ("spike", type(ax).__name__, n, route)
     return global_solve

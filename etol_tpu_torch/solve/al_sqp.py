@@ -11,14 +11,15 @@ the lane axis first ([B, ...]). The per-lane math (AL value, gradient,
 Hessian blocks) is written for one problem and mapped over lanes with
 ``torch.func.vmap``; the KKT solve takes the whole batch at once.
 
-The loop. A Python ``while`` runs while any lane's own loop condition
-holds, and every state tensor is updated as ``torch.where(active, new,
-old)``, so a lane stops changing exactly where its own JAX
-``while_loop`` would stop (``inner_iters`` and the stage trip counts
-depend on this). One trip is a full Newton step and then
-``cfg.chord_steps`` reuse steps against the stored KKT blocks; the
-freeze wraps the whole trip. Testing ``active.any()`` syncs the host
-once per trip.
+The loop. It runs while any lane's own loop condition holds, and every
+state tensor is updated as ``torch.where(active, new, old)``, so a lane
+stops changing exactly where its own JAX ``while_loop`` would stop
+(``inner_iters`` and the stage trip counts depend on this). One trip is
+a full Newton step and then ``cfg.chord_steps`` reuse steps against the
+stored KKT blocks; the freeze wraps the whole trip. On a card the trip
+is captured once as a CUDA graph and replayed, the counterpart of the
+JAX package's one traced ``while_loop`` (:mod:`.trip_graph`); on the
+CPU a Python ``while`` tests ``active.any()`` once per trip.
 
 The KKT solve. ``kkt_solver="kernel"`` launches the CUDA kernel
 (:mod:`..ops.bt_cuda`) for float32 problems with node widths up to 9,
@@ -861,23 +862,14 @@ def _lm_update(cfg: SolverConfig, lm, fail, good, poor, cap_growth):
                     torch.where(poor, grow, lm)))
 
 
-def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
-                 rho_init=None, box=None, kkt_solve=None,
-                 agree=None) -> SolveResult:
-    """The flattened AL-SQP over a batch; ``z0`` [B, nz], ``lam0`` a
-    (lam_def, lam_eq, mu) triple with lane axes, ``rho_init`` [B],
-    ``box`` an optional (lo, hi) pair of [B, K, w] bounds intersected with
-    the NLP's (``z0`` is clamped into the intersection), ``kkt_solve`` a
-    KKT solver ``f(D [B,K,w,w], O [B,K-1,w,w], r [B,K,w]) -> x`` in place
-    of the configured route, and ``agree`` a map of the [B] mask of lanes
-    still running to the mask every process of a group runs (where the
-    KKT solve is a collective, all of them must take the same trips)."""
-    F = _ALFuncs(nlp, cfg, data, box, kkt_solve)
+def _start(F: _ALFuncs, cfg: SolverConfig, z0, lam0, rho_init=None):
+    """The loop's first state (a dict of [B, ...] tensors, the keys of
+    ``_STATE``, and of ``_CHORD_STATE`` under ``cfg.chord_steps``) and the
+    line search's exponents, for the batch ``F`` holds."""
     B = F.lb.shape[0]
     dtype, dev = F.dtype, F.lb.device
     lam_def0, lam_eq0, mu0 = lam0
     Z0 = torch.clamp(z0.reshape(B, F.K, F.w), F.lb, F.ub)
-    max_total = cfg.max_total or cfg.max_outer * cfg.max_inner
     # the line search's exponents: an explicit grid, or the first ls_grid
     exps = torch.tensor(
         tuple(cfg.ls_exponents) or _LS_EXPONENTS[
@@ -910,26 +902,35 @@ def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
                                 device=dev),
             dmp_st=full(0.0),
         )
+    return st, exps
 
-    def cond(s):
-        active = ((~s["done"]) & (s["o_it"] < cfg.max_outer)
-                  & (s["tot"] < max_total))
-        return active if agree is None else agree(active)
 
-    # One trip is the composite iteration: a full step, then the chord
-    # steps. A lane's condition is tested once per trip, as the JAX
-    # while_loop tests it, so the freeze wraps the composite: a lane
-    # runs its chord steps even where ``tot`` passes ``max_total``
-    # inside one, and each sub-step counts in ``tot``.
-    active = cond(st)
-    while bool(active.any()):  # one host sync per trip
-        new = _body(F, cfg, st, exps)
-        for _ in range(cfg.chord_steps):
-            new = _body(F, cfg, new, exps, reuse=True)
-        st = {k: _sel(active, new[k], st[k]) for k in st}
-        active = cond(st)
+def _active(cfg: SolverConfig, st: dict, max_total, agree=None):
+    """The [B] mask of lanes whose own loop condition holds; ``max_total``
+    an int or a 0-dim tensor. ``agree`` maps it to the mask every process
+    of a group runs."""
+    active = ((~st["done"]) & (st["o_it"] < cfg.max_outer)
+              & (st["tot"] < max_total))
+    return active if agree is None else agree(active)
 
+
+def _trip(F: _ALFuncs, cfg: SolverConfig, st: dict, exps, active) -> dict:
+    """One trip of the loop: the composite iteration, a full step and
+    then the chord steps, with the lanes outside ``active`` frozen. A
+    lane's condition is tested once per trip, as the JAX while_loop tests
+    it, so the freeze wraps the composite: a lane runs its chord steps
+    even where ``tot`` passes ``max_total`` inside one, and each sub-step
+    counts in ``tot``."""
+    new = _body(F, cfg, st, exps)
+    for _ in range(cfg.chord_steps):
+        new = _body(F, cfg, new, exps, reuse=True)
+    return {k: _sel(active, new[k], st[k]) for k in st}
+
+
+def _finish(nlp: NLP, data: VGPData, st: dict) -> SolveResult:
+    """The result of a finished loop state."""
     cd, ce, g, Z = st["cd"], st["ce"], st["g"], st["Z"]
+    B = Z.shape[0]
     viol_eq = torch.maximum(_amax0(torch.abs(cd)), _amax0(torch.abs(ce)))
     viol_in = _amax0(torch.clamp(g, min=0.0))
     z = Z.reshape(B, -1)
@@ -945,6 +946,30 @@ def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
         grad_norm=st["pgn"], lam_def=st["lam_def"], lam_eq=st["lam_eq"],
         mu=st["mu"], rho=st["rho"],
     )
+
+
+def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
+                 rho_init=None, box=None, kkt_solve=None,
+                 agree=None) -> SolveResult:
+    """The flattened AL-SQP over a batch; ``z0`` [B, nz], ``lam0`` a
+    (lam_def, lam_eq, mu) triple with lane axes, ``rho_init`` [B],
+    ``box`` an optional (lo, hi) pair of [B, K, w] bounds intersected with
+    the NLP's (``z0`` is clamped into the intersection), ``kkt_solve`` a
+    KKT solver ``f(D [B,K,w,w], O [B,K-1,w,w], r [B,K,w]) -> x`` in place
+    of the configured route, and ``agree`` a map of the [B] mask of lanes
+    still running to the mask every process of a group runs (where the
+    KKT solve is a collective, all of them must take the same trips).
+
+    The loop runs where :func:`.trip_graph.loop` sends it: on a card, one
+    trip captured as a CUDA graph and replayed; on the CPU, and for a
+    collective ``agree``, the eager loop with one host sync a trip."""
+    from . import trip_graph
+
+    F = _ALFuncs(nlp, cfg, data, box, kkt_solve)
+    st, exps = _start(F, cfg, z0, lam0, rho_init)
+    max_total = cfg.max_total or cfg.max_outer * cfg.max_inner
+    st = trip_graph.loop(F, cfg, st, exps, max_total, agree)
+    return _finish(nlp, data, st)
 
 
 def init_multipliers(nlp: NLP, data: VGPData):

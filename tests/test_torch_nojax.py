@@ -55,7 +55,7 @@ MODULES = [
     "parallel/solve_sharded",
     "solve/__init__", "solve/al_sqp", "solve/branch_bound",
     "solve/btridiag", "solve/options", "solve/planners", "solve/refine",
-    "solve/shooting", "solve/side_branch",
+    "solve/shooting", "solve/side_branch", "solve/trip_graph",
     "transcribe/__init__", "transcribe/collocation", "transcribe/nlp",
     "transcribe/obstacles", "utils/__init__", "utils/profiling",
     "viz/__init__", "viz/plots",
