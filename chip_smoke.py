@@ -49,11 +49,18 @@ result line:
              bitwise equal (else within GRAPH_TOL), the MPC's ticks one
              capture; each side's trips, seconds, ms a trip, the card's
              busy share (trips times one trip's replay time over the wall
-             time), captures, capture seconds and pool bytes. Every phase
+             time), captures, capture seconds and pool bytes. Before
+             them the bench's seeds at B=2048 (``shooting.plan_guess``,
+             256 walks and 16 pulled rollouts, a program of
+             ``trip_graph``) eager, on the graph (its key's first use:
+             an eager run, the capture, a replay), on the graph again
+             and eager again: z0 bitwise equal, ms, the card's own ms of
+             a replay, busy share, captures and pool bytes. Every phase
              runs on graphs (all but the horizon solve over ranks, a
              collective) and ends with its captures, trips on graphs,
              idle trips past a stop (each launches the kernel once, and
-             the launch checks count them) and eager trips;
+             the launch checks count them), eager trips and program
+             calls on graphs;
 5. a/b     — B=64, N=50 cold solves with the kernel and with the plain
              "scan" KKT path, both on the card;
 6. cr      — cyclic reduction (plain torch ops, no kernel of its own)
@@ -100,8 +107,13 @@ result line:
              seconds of each, and one JSON line of its findings;
 12. planners — the sampling planners on ``uas_2d`` N=50 (three boxes) at
              the problem's default budget (N dt = 10 s, 20480 samples):
-             each of the seven names (samples, trips, seconds, best score,
-             tree counts, PDST's largest priority); planner-seeded
+             each of the seven names eager, on the graph (its key's first
+             use: an eager run, the capture, a replay) and on the graph
+             again, X, U and every ``info`` tensor bitwise equal across
+             the three (samples, trips, seconds of each route, the card's
+             own seconds of a replay, the staged draws' bytes, pool
+             bytes, best score, tree counts, PDST's largest priority);
+             planner-seeded
              ``al_sqp.solve``s under "kernel" from RRT, SST and PDST
              (launches at (51, 5, 1)); the facade's ``set_planner`` +
              ``plan`` on ``ocp_2d_ex1.xml`` for every name, at a budget
@@ -365,7 +377,9 @@ class Clock:
                        f"({c['idle_trips'] - was['idle_trips']} of them "
                        f"idle past the stop), "
                        f"{c['eager_trips'] - was['eager_trips']} eager "
-                       f"trips; {len(TG._CACHE)} graphs cached, pools "
+                       f"trips, {c['programs'] - was['programs']} program "
+                       f"calls on graphs; {len(TG._CACHE)} graphs cached, "
+                       f"pools "
                        f"{TG.pool_bytes()} bytes, static buffers "
                        f"{TG.static_bytes()} bytes")
             self.graphs = c
@@ -780,26 +794,41 @@ def idle():
     return TG.COUNTS["idle_trips"] - IDLE0
 
 
-def trip_device_ms(torch, reps=GRAPH_REPS):
-    """The card's time for one trip of the most recently used key: its
-    graph replayed ``reps`` times back to back between two CUDA events.
-    The loop has ended, so these trips are frozen and change nothing; they
-    are not counted as launches of a path."""
-    graph = next(reversed(TG._CACHE.values())).graph
+def latest(kind):
+    """The most recently used cached entry of ``kind`` (``TG._Entry``, a
+    loop's, or ``TG._Program``, a seed's or a planner's)."""
+    return next(e for e in reversed(TG._CACHE.values())
+                if isinstance(e, kind))
+
+
+def replay_ms(torch, graph, reps=GRAPH_REPS, runs=3):
+    """The card's time for one replay of ``graph``: the median over
+    ``runs`` of ``reps`` replays back to back between two CUDA events."""
     graph.replay()
     torch.cuda.synchronize()
     return _median_event_ms(torch, lambda: [
-        graph.replay() for _ in range(reps)], 3, reps)
+        graph.replay() for _ in range(reps)], runs, reps)
+
+
+def trip_device_ms(torch, reps=GRAPH_REPS):
+    """The card's time for one trip of the most recently used loop key:
+    its graph replayed back to back. The loop has ended, so these trips
+    are frozen and change nothing; they are not counted as launches of a
+    path."""
+    return replay_ms(torch, latest(TG._Entry).graph, reps)
 
 
 def graph_side(torch, bt_cuda, cyclic_reduction, label, run, route=None,
                lag=None):
     """``run()`` under ``trip_graph.override(route, lag)``, timed with the
     host clock around work that ends in a sync; returns (its result, a
-    dict of its counts)."""
+    dict of its counts and of the device memory its run held at its peak
+    over what was held before)."""
     reset_counts(bt_cuda, cyclic_reduction)
     c0 = dict(TG.COUNTS)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with TG.override(route, lag):
         out = run()
@@ -809,10 +838,12 @@ def graph_side(torch, bt_cuda, cyclic_reduction, label, run, route=None,
     side = dict(
         wall_s=wall, trips=c["trips"] + c["eager_trips"],
         idle_trips=c["idle_trips"], captures=c["captures"],
-        capture_s=c["capture_s"], launches=bt_cuda.LAUNCHES,
+        capture_s=c["capture_s"], programs=c["programs"],
+        launches=bt_cuda.LAUNCHES,
         launches_by={"%s_K%d_w%d_B%d" % k: n
                      for k, n in sorted(bt_cuda.LAUNCHES_BY.items())},
-        pool_bytes=TG.pool_bytes(), static_bytes=TG.static_bytes())
+        pool_bytes=TG.pool_bytes(), static_bytes=TG.static_bytes(),
+        peak_bytes=torch.cuda.max_memory_allocated() - held)
     side["ms_a_trip"] = 1e3 * wall / max(side["trips"], 1)
     assert_checked(f"graph {label}", bt_cuda.LAUNCHES_BY)
     return out, side
@@ -833,7 +864,8 @@ def same_result(torch, a, b, fields=("z", "obj", "lam_def", "lam_eq", "mu",
 
 
 def check_graph(torch, bench_harness, bt_cuda, cyclic_reduction):
-    """Phase 4b: the solver loop captured as a CUDA graph against the
+    """Phase 4b: the bench's seeds (:func:`check_seeds`), then the solver
+    loop captured as a CUDA graph against the
     eager loop with a sync a trip: the main path's phase-1 cold solve
     (uas_2d N=50, B=MAIN_B, the bench's seeds) eager, on the graph (its
     key's first use: a warm-up trip and the capture), on the graph again
@@ -844,13 +876,13 @@ def check_graph(torch, bench_harness, bt_cuda, cyclic_reduction):
     share (trips times one trip's replay time over the wall time),
     captures, capture seconds and pool bytes are printed."""
     from etol_tpu_torch.models.tuned import tuned_extras
-    from etol_tpu_torch.solve import al_sqp, shooting
+    from etol_tpu_torch.solve import al_sqp
 
-    out = {"main": {}, "mpc": {}}
+    out = {"seeds": {}, "main": {}, "mpc": {}}
     nlp, cfg, _, data, gen = bench_harness.prepare(MAIN_B, MAIN_NSTEPS)
     extras = tuned_extras("uas_2d")
-    z0 = shooting.plan_guess(nlp, data, extras["seed_walks"], gen,
-                             pulled=extras["seed_pulled"])
+    z0 = check_seeds(torch, bt_cuda, cyclic_reduction, nlp, data, gen,
+                     extras, out["seeds"])
 
     def phase1():
         return al_sqp.solve_batched(nlp, cfg, data, z0)
@@ -936,6 +968,64 @@ def check_graph(torch, bench_harness, bt_cuda, cyclic_reduction):
                  f"{out['mpc']['graph_lag0']['p50_ms']:.2f}), one capture "
                  f"for the cold solve and all {GRAPH_MPC_STEPS} ticks")
     return out
+
+
+def check_seeds(torch, bt_cuda, cyclic_reduction, nlp, data, gen, extras,
+                out):
+    """Phase 4b's seeds: the bench's ``plan_guess`` at B=MAIN_B eager, on
+    the graph (its key's first use: the main phase made the key, so the
+    programs' entries are dropped first), on the graph again and eager
+    again, each from the generator's same state; z0 must be bitwise
+    equal. Fills ``out`` with each side's counts, ms, the card's own ms of
+    one replay and the busy share (that over the wall ms), and returns
+    the graph's z0."""
+    from etol_tpu_torch.solve import shooting
+
+    state = gen.get_state()
+
+    def seeds():
+        gen.set_state(state)
+        return shooting.plan_guess(nlp, data, extras["seed_walks"], gen,
+                                   pulled=extras["seed_pulled"])
+
+    for key in [k for k, e in TG._CACHE.items()
+                if isinstance(e, TG._Program)]:
+        del TG._CACHE[key]
+    sides = (("eager", "eager"), ("graph_first", None), ("graph", None),
+             ("eager_again", "eager"))
+    z0 = {}
+    for name, route in sides:
+        z0[name], out[name] = graph_side(
+            torch, bt_cuda, cyclic_reduction, f"seeds {name}", seeds, route)
+    entry = latest(TG._Program)
+    dev_ms = replay_ms(torch, entry.graph)
+    for name, _ in sides:
+        side = out[name]
+        del side["ms_a_trip"]
+        side.update(ms=1e3 * side["wall_s"], device_ms=dev_ms,
+                    busy=dev_ms / (1e3 * side["wall_s"]),
+                    program_static_bytes=entry.static_bytes,
+                    program_pool_bytes=entry.pool_bytes,
+                    bitwise=torch.equal(z0[name], z0["eager"]))
+        say("graph", f"seeds uas_2d N={MAIN_NSTEPS} B={MAIN_B} "
+                     f"({extras['seed_walks']} walks, "
+                     f"{extras['seed_pulled']} pulled), {name}: "
+                     f"{json.dumps(side)}")
+        if not side["bitwise"]:
+            raise AssertionError(f"seeds {name}: z0 is not bitwise the "
+                                 "eager route's")
+    if (out["graph_first"]["captures"], out["graph_first"]["programs"],
+            out["graph"]["captures"], out["graph"]["programs"],
+            out["eager"]["programs"] + out["eager_again"]["programs"]) \
+            != (1, 1, 0, 1, 0):
+        raise AssertionError("the seeds should capture once on the graph's "
+                             "first use, replay on the next, and take no "
+                             "program route eagerly")
+    say("graph", f"seeds: eager {out['eager']['ms']:.2f} ms, graph first "
+                 f"use {out['graph_first']['ms']:.2f} ms, graph "
+                 f"{out['graph']['ms']:.2f} ms, the card's own "
+                 f"{dev_ms:.3f} ms a replay")
+    return z0["graph"]
 
 
 def check_mpc(torch, bench_harness, bt_cuda, cyclic_reduction):
@@ -1483,6 +1573,7 @@ def check_planners(torch, bt_cuda, cyclic_reduction):
     """Phase 12: the sampling planners on the default device; returns its
     findings. Every step raises on a miss."""
     from etol_tpu_torch import TrajectoryOptimizer, cli
+    from etol_tpu_torch.core.problem import tree_flatten
     from etol_tpu_torch.core.types import Status
     from etol_tpu_torch.models import dynamics, problems
     from etol_tpu_torch.models.tuned import tuned_extras
@@ -1516,13 +1607,37 @@ def check_planners(torch, bt_cuda, cyclic_reduction):
     S = planners.budget_samples(dims.nsteps * vgp.dt)
     d0 = float(torch.linalg.norm(data.x0 - data.xf))
     plans = {}
+    routes = (("eager", "eager"), ("graph_first", None), ("graph", None))
     for name in names:
-        sync()
-        t0 = time.perf_counter()
-        X, U, info = planners.plan(name, nlp.dynamics, dims.nsteps, data, S,
-                                   gen())
-        sync()
-        secs = time.perf_counter() - t0
+        # eager, then on the graph: its key's first use (an eager run,
+        # the capture, a replay) and a replay; each from seed 0
+        runs, secs, calls = {}, {}, {}
+        for side, route in routes:
+            c0 = dict(TG.COUNTS)
+            sync()
+            t0 = time.perf_counter()
+            with TG.override(route):
+                runs[side] = planners.plan(name, nlp.dynamics, dims.nsteps,
+                                           data, S, gen())
+            sync()
+            secs[side] = time.perf_counter() - t0
+            calls[side] = (TG.COUNTS["captures"] - c0["captures"],
+                           TG.COUNTS["programs"] - c0["programs"])
+        if calls != {"eager": (0, 0), "graph_first": (1, 1),
+                     "graph": (0, 1)}:
+            raise AssertionError(f"{name}: captures and program calls "
+                                 f"{calls}: the graph's first use should "
+                                 "capture once and the next replay")
+        ref = tree_flatten(runs["eager"])
+        for side in ("graph_first", "graph"):
+            if not all(torch.equal(a, b) for a, b in zip(
+                    ref, tree_flatten(runs[side]))):
+                raise AssertionError(f"{name}: X, U or an info tensor on "
+                                     f"the graph ({side}) is not bitwise "
+                                     "the eager route's")
+        entry = latest(TG._Program)
+        device_s = replay_ms(torch, entry.graph, reps=1) / 1e3
+        X, U, info = runs["graph"]
         on_card(f"plan {name}", X, U)
         plans[name] = (X, U)
         dN = float(torch.linalg.norm(X[-1] - data.xf))
@@ -1544,9 +1659,16 @@ def check_planners(torch, bt_cuda, cyclic_reduction):
         else:
             best = float(info["scores"].min())
             found = dict(valid_fraction=float(info["valid_fraction"]))
-        found = dict(samples=S, trips=trips, seconds=secs,
-                     s_per_trip=secs / trips, best_score=best,
-                     valid=best < 1e6, goal_dist=dN, start_dist=d0, **found)
+        found = dict(samples=S, trips=trips, seconds=secs["graph"],
+                     seconds_eager=secs["eager"],
+                     seconds_graph_first=secs["graph_first"],
+                     device_s=device_s, busy=device_s / secs["graph"],
+                     s_per_trip=secs["graph"] / trips,
+                     s_per_trip_eager=secs["eager"] / trips,
+                     staged_bytes=entry.static_bytes,
+                     pool_bytes=entry.pool_bytes, bitwise=True,
+                     best_score=best, valid=best < 1e6, goal_dist=dN,
+                     start_dist=d0, **found)
         say("planners", f"uas_2d N={dims.nsteps} {name}: {found}")
         if name == "SST":
             # SST's witness cells (grid 16 over the 40 x 40 box: 2.5 wide)
@@ -2181,10 +2303,12 @@ def main(phases=PHASES):
     if "main" in phases:
         bt_cuda.LAUNCHES = 0
         bt_cuda.LAUNCHES_BY.clear()
+        programs = TG.COUNTS["programs"]
         out = bench_harness.main_path(MAIN_B, MAIN_NSTEPS)
         launches = bt_cuda.LAUNCHES
         launches_by = dict(bt_cuda.LAUNCHES_BY)
-        check_main(torch, out, launches, launches_by)
+        check_main(torch, out, launches, launches_by,
+                   TG.COUNTS["programs"] - programs)
         clock.lap("main")
 
     # 4b. the solver loop on a CUDA graph against the eager loop
@@ -2385,8 +2509,9 @@ def variant_counts(by):
     return out
 
 
-def check_main(torch, out, launches, launches_by):
-    """Phase 4's findings and checks."""
+def check_main(torch, out, launches, launches_by, programs):
+    """Phase 4's findings and checks; ``programs`` is the count of
+    program calls on graphs over the main path (the seeds: one)."""
     cold, warm = out["cold"], out["warm"]
     res = warm["result"]
     say("main", f"uas_2d N={MAIN_NSTEPS} B={MAIN_B}: cold solved "
@@ -2399,9 +2524,14 @@ def check_main(torch, out, launches, launches_by):
     say("main", f"audit: deepest node containment "
                 f"{cold['audit_node_depth_max']:.3e}, deepest mid-segment "
                 f"dip {cold['audit_midseg_depth_max']:.4f}")
-    say("main", f"wall: seeds {cold['seed_s']:.2f} s, cold solve "
+    say("main", f"wall: seeds {cold['seed_s']:.3f} s on the graph (its "
+                f"key's first use: an eager run, the capture, a replay; "
+                f"the graph phase times a replay), cold solve "
                 f"{cold['cold_s']:.2f} s, warm re-solve {warm['warm_s']:.2f}"
                 f" s")
+    if programs != 1:
+        raise AssertionError(f"the main path made {programs} program calls "
+                             "on graphs: its seeds should be one")
     say("main", f"bt_solve kernel launches during the main path: {launches}"
                 f"; by (variant, K, w, batch): "
                 f"{sorted(launches_by.items(), key=lambda kv: -kv[0][3])}")

@@ -35,9 +35,14 @@ states, goal-bias uniforms, the Gumbel noise of a categorical choice,
 controls, extension lengths), so a test can hand them the JAX package's
 draws. :func:`cem_normals` and :func:`tree_draws` make them from a
 ``torch.Generator``, scaled as ``jax.random.uniform(minval, maxval)``
-scales its floats; they do not reproduce ``jax.random``'s bits. The JAX
-package's ``lax.scan`` over rounds and trips is a host loop here; the
-loop reads nothing back from the device.
+scales its floats; they do not reproduce ``jax.random``'s bits.
+
+The JAX package's ``lax.scan`` over rounds and trips is one jitted
+program; here the bodies run as programs of :mod:`.trip_graph`: on a
+card each captured once per key as a CUDA graph, every round or trip
+unrolled into it, and replayed; on the CPU eagerly, a host loop that
+reads nothing back from the device. The draws stay outside the graph:
+a tree's are staged whole before it (:func:`run_tree`).
 """
 from __future__ import annotations
 
@@ -206,11 +211,14 @@ def plan_cem_from_normals(
         mu = torch.mean(elite, dim=0)
         # floor keeps late rounds exploring
         sig = torch.std(elite, dim=0, correction=0) + 0.02 * span
-        i0 = elite_idx[0]
-        better = scores[i0] < best_score
-        best_score = torch.where(better, scores[i0], best_score)
-        best_U = torch.where(better, U[i0], best_U)
-        round_best.append(scores[i0])
+        # the round's best by a one-element index: a 0-dim one is read
+        # on the host
+        i0 = elite_idx[:1]
+        s0 = scores[i0][0]
+        better = s0 < best_score
+        best_score = torch.where(better, s0, best_score)
+        best_U = torch.where(better, U[i0][0], best_U)
+        round_best.append(s0)
     X = shooting.rollout(dynamics, data.x0, best_U, data.dt, data)
     U_nodes = torch.cat([best_U[:1], best_U], dim=0)
     info = dict(
@@ -233,8 +241,10 @@ def _plan_cem(
     effort_weight: float = 0.1,
 ):
     eps = cem_normals(n_samples, nsteps, n_rounds, generator, data)
-    return plan_cem_from_normals(dynamics, nsteps, data, eps, n_elite,
-                                 goal_weight, effort_weight)
+    from . import trip_graph
+
+    return trip_graph.program(plan_cem_from_normals, dynamics, nsteps, data,
+                              eps, n_elite, goal_weight, effort_weight)
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +307,36 @@ def _plan_tree(
     **kw,
 ):
     draws = tree_draws(select, n_samples, data, generator, batch, ext_max)
-    return plan_tree_from_draws(dynamics, nsteps, data, draws, n_samples,
-                                select=select, batch=batch, ext_max=ext_max,
+    return run_tree(dynamics, nsteps, data, draws, n_samples, select=select,
+                    batch=batch, ext_max=ext_max, **kw)
+
+
+def run_tree(dynamics: Callable, nsteps: int, data: VGPData,
+             draws: Iterable[dict], n_samples: int, **kw):
+    """:func:`plan_tree_from_draws` on :mod:`.trip_graph`'s route: eagerly
+    on the CPU, taking each trip's draws as the trip asks for them; on a
+    card every trip's draws staged first, [trips, ...] a name (EST's,
+    KPIECE's and PDST's Gumbel noise is [batch, M] a trip: 1.67 GB at
+    uas_2d's budget of 20480 samples), and the whole tree one program."""
+    from . import trip_graph
+
+    if trip_graph.route_of(data.x0.device) == "eager":
+        return plan_tree_from_draws(dynamics, nsteps, data, draws,
+                                    n_samples, **kw)
+    trips = list(draws)
+    staged = {name: torch.stack([d[name] for d in trips])
+              for name in trips[0]}
+    del trips
+    return trip_graph.program(_tree_from_staged, dynamics, nsteps, data,
+                              staged, n_samples, **kw)
+
+
+def _tree_from_staged(dynamics, nsteps, data, staged, n_samples, **kw):
+    """:func:`plan_tree_from_draws` of the draws :func:`run_tree` staged:
+    the body its program captures."""
+    trips = ({name: a[i] for name, a in staged.items()}
+             for i in range(staged["u"].shape[0]))
+    return plan_tree_from_draws(dynamics, nsteps, data, trips, n_samples,
                                 **kw)
 
 
@@ -375,14 +413,13 @@ def plan_tree_from_draws(
     dtype, dev = data.x0.dtype, data.x0.device
     M, batch, n_iters = tree_shape(n_samples, batch)
     G2 = grid * grid
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
 
     states = torch.zeros((M, nx), dtype=dtype, device=dev)
     states[0] = data.x0
     depth = torch.zeros((M,), dtype=torch.int64, device=dev)
     ctrl = torch.zeros((M, nsteps, nu), dtype=dtype, device=dev)
-    alive = torch.zeros((M,), dtype=torch.bool, device=dev)
-    alive[0] = True
+    alive = torch.arange(M, device=dev) == 0
     cost = torch.zeros((M,), dtype=dtype, device=dev)
     # SST witness grid: per-cell cheapest cost and its node ("champion")
     wit_cost = torch.full((G2,), float("inf"), dtype=dtype, device=dev)
@@ -540,17 +577,18 @@ def plan_tree_from_draws(
     scores = torch.where(alive, scores, inf)
     scores = scores + 0.1 * (nsteps - depth).to(dtype)
     best = torch.argmin(scores)
-    Ub = ctrl[best]
+    at = best[None]  # a one-element index: a 0-dim one is read on the host
+    Ub = ctrl[at][0]
     U_nodes = torch.cat([Ub[:1], Ub], dim=0)
     info = dict(
         scores=scores,
         best=best,
         n_nodes=torch.sum(alive),
         depth=depth,
-        best_depth=depth[best],
+        best_depth=depth[at][0],
         cost=cost,
         n_pruned=pruned,
         cell_priority=prio,
         witness_cost=wit_cost,
     )
-    return Xs[best], U_nodes, info
+    return Xs[at][0], U_nodes, info

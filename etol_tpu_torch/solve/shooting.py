@@ -16,6 +16,11 @@ first) and draw ONE set of unit draws that every lane scales by its own
 bounds — as the JAX bench's per-lane ``plan_guess(..., key=None)`` uses
 one key for every lane (``tests/test_torch_shooting.py`` hands
 :func:`plan_from_units` the reference's own draws and gets its seeds).
+
+:func:`plan` makes the draws eagerly and runs :func:`plan_from_units`
+as a program of :mod:`.trip_graph`: on a card captured once per key as a
+CUDA graph and replayed, as the JAX package jits its ``plan``; on the
+CPU eagerly.
 """
 from __future__ import annotations
 
@@ -225,8 +230,11 @@ def plan(
     units = draw_units(n_samples, nsteps, data.u_lb.shape[-1], pulled,
                        n_cand, generator, dev, dtype,
                        lanes=data.x0.shape[0] if per_lane else None)
-    return plan_from_units(dynamics, data, *units, goal_weight=goal_weight,
-                           effort_weight=effort_weight, per_lane=per_lane)
+    from . import trip_graph
+
+    return trip_graph.program(plan_from_units, dynamics, data, *units,
+                              goal_weight=goal_weight,
+                              effort_weight=effort_weight, per_lane=per_lane)
 
 
 def plan_guess(nlp: NLP, data: VGPData, n_samples: int = 4096,

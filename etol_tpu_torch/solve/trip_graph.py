@@ -1,4 +1,5 @@
-"""The solver loop: one AL-SQP trip captured as a CUDA graph and replayed.
+"""The solver loop and the seeds and planners, each captured as a CUDA
+graph and replayed.
 
 Counterpart of how the JAX package runs its solve
 (``etol_tpu/solve/al_sqp.py``: "Whole solve is one traced program:
@@ -65,14 +66,29 @@ idle trip costs what the waits save. A fixed block of trips between
 reads would run up to a block of idle trips at every stop, where lag 1
 runs one.
 
-The cache holds at most MAX_ENTRIES keys and drops the least recently
-used first, also while the entries' memory passes POOL_SHARE of the
-device's. An entry's memory is its static buffers (state and data of B
-lanes) and its graph's private pool, which keeps every tensor one trip
-makes reserved for the replays: the line search's B·|grid| candidates
-and their residuals, the assembly's intermediates, the Hessian blocks,
-the KKT solve's scratch. ``chip_smoke.py`` prints the pool bytes of each
-phase's keys.
+Programs. The JAX package jits its seeds and planners too
+(``etol_tpu/solve/shooting.py`` ``plan``, ``planners.py`` ``_plan_cem``
+and ``_plan_tree``, each a ``lax.scan`` in one traced program).
+:func:`program` runs such a deterministic body (the draws are made
+before it, outside the graph) the same way: on a CUDA device the whole
+body is captured once per key, every rollout step, CEM round and tree
+trip of it unrolled (a tree trip's shapes grow with its written prefix,
+but the prefix is a Python int fixed by the trip's index), and each call
+copies its tensors into the entry's static buffers, replays the graph
+once and clones the outputs out. The key is the body and the call's
+tree of arguments, each tensor by its shape and dtype and every other
+leaf (the dynamics, sizes, names, Python floats) by its value, with the
+device. On the CPU the body runs eagerly on the caller's tensors.
+
+The cache, the trips' keys and the programs' together, holds at most
+MAX_ENTRIES keys and drops the least recently used first, also while
+the entries' memory passes POOL_SHARE of the device's. An entry's memory
+is its static buffers (state and data of B lanes, a program's
+arguments) and its graph's private pool, which keeps every tensor the
+captured work makes reserved for the replays: for a trip the line
+search's B·|grid| candidates and their residuals, the assembly's
+intermediates, the Hessian blocks, the KKT solve's scratch.
+``chip_smoke.py`` prints the pool bytes of each phase's keys.
 """
 from __future__ import annotations
 
@@ -84,7 +100,8 @@ import time
 
 import torch
 
-from ..core.problem import tree_flatten, tree_flatten_with_paths, tree_map
+from ..core.problem import (tree_flatten, tree_flatten_with_paths,
+                            tree_map, tree_unflatten)
 from ..ops import bt_cuda, cyclic_reduction
 from .al_sqp import SolverConfig, _active, _ALFuncs, _trip
 
@@ -97,20 +114,23 @@ POOL_SHARE = 0.25
 #: what runs have done in this process, for a run to read: graphs
 #: captured and the seconds that took, trips run on static buffers (the
 #: first, eager trip of a new key included) and of them the frozen ones
-#: past the stop, and trips of the eager loop
+#: past the stop, trips of the eager loop, and calls of a program on
+#: static buffers
 COUNTS = dict(captures=0, capture_s=0.0, trips=0, idle_trips=0,
-              eager_trips=0)
+              eager_trips=0, programs=0)
 
-_CACHE: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
+_CACHE: "collections.OrderedDict[tuple, _Captured]" = (
+    collections.OrderedDict())
 _OVERRIDE = {}
 
 
 @contextlib.contextmanager
 def override(route: str | None = None, lag: int | None = None):
-    """Force, for the solves inside, the loop's route ("eager" or
-    "static") and the stop test's lag: for the card's comparison of the
-    graph with the eager loop, and for the CPU tests of the static path,
-    which runs the trip the graph captures without capturing it."""
+    """Force, for the solves and programs inside, the route ("eager" or
+    "static") and the loop's stop-test lag: for the card's comparison of
+    the graph with the eager route, and for the CPU tests of the static
+    path, which runs the trip or the body the graph captures without
+    capturing it."""
     if route not in (None, "eager", "static"):
         raise ValueError(f"route must be 'eager' or 'static', got {route!r}")
     if lag is not None and lag < 0:
@@ -140,10 +160,7 @@ def loop(F: _ALFuncs, cfg: SolverConfig, st: dict, exps, max_total: int,
     state: on static buffers, with the trip captured on a CUDA device,
     unless the batch is on the CPU, ``agree`` is a collective or the
     batch has no lanes (it runs no trip)."""
-    route = _OVERRIDE.get("route")
-    if route is None:
-        route = ("static" if F.lb.device.type == "cuda" and agree is None
-                 and F.lb.shape[0] > 0 else "eager")
+    route = route_of(F.lb.device, agree is None and F.lb.shape[0] > 0)
     if route == "eager":
         return _eager(F, cfg, st, exps, max_total, agree)
     if agree is not None:
@@ -151,6 +168,38 @@ def loop(F: _ALFuncs, cfg: SolverConfig, st: dict, exps, max_total: int,
                          "loop; it cannot be captured")
     lag = _OVERRIDE.get("lag")
     return _static(F, cfg, st, exps, max_total, LAG if lag is None else lag)
+
+
+def route_of(device, capturable: bool = True) -> str:
+    """The route of work on ``device``: the overridden one, else
+    "static" (static buffers and a graph) on a CUDA device where the work
+    can be captured, else "eager"."""
+    route = _OVERRIDE.get("route")
+    if route is None:
+        route = ("static" if device.type == "cuda" and capturable
+                 else "eager")
+    return route
+
+
+def program(body, *args, **kwargs):
+    """``body(*args, **kwargs)``: on a CUDA device (or under
+    ``override("static")``) on the static buffers of the call's key, the
+    body captured on the key's first use and replayed; on the CPU
+    eagerly. ``args`` and ``kwargs`` are trees of tensors and other
+    leaves; the body must read nothing on the host, and the result is a
+    tree of tensors, cloned out of the buffers."""
+    tree = (args, kwargs)
+    leaves = tree_flatten_with_paths(tree)
+    device = next(a.device for _, a in leaves if isinstance(a, torch.Tensor))
+    if route_of(device) == "eager":
+        return body(*args, **kwargs)
+    key = (body, str(device), tuple(
+        (path, tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
+        else (path, type(a), a) for path, a in leaves))
+    entry = _lookup(key, lambda: _Program(body, tree))
+    out = entry.run(tree)
+    _evict(device)
+    return out
 
 
 def _eager(F, cfg, st, exps, max_total, agree):
@@ -174,15 +223,21 @@ def _key(F: _ALFuncs, cfg: SolverConfig) -> tuple:
 
 
 def _static(F, cfg, st, exps, max_total, lag):
-    key = _key(F, cfg)
-    entry = _CACHE.pop(key, None)
-    if entry is None:
-        entry = _Entry(F, cfg, st, exps)
-    _CACHE[key] = entry
+    entry = _lookup(_key(F, cfg), lambda: _Entry(F, cfg, st, exps))
     entry.load(F, st, max_total)
     entry.run(lag)
     _evict(F.lb.device)
     return {k: v.clone() for k, v in entry.st.items()}
+
+
+def _lookup(key, make):
+    """The cached entry of ``key`` (made by ``make()`` on its first use),
+    now the most recently used."""
+    entry = _CACHE.pop(key, None)
+    if entry is None:
+        entry = make()
+    _CACHE[key] = entry
+    return entry
 
 
 def _evict(device) -> None:
@@ -197,8 +252,95 @@ def _buffer(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-class _Entry:
-    """One key's static buffers and, on a CUDA device, its graph."""
+class _Captured:
+    """Static buffers and, on a CUDA device, a graph captured from
+    :meth:`step`: what a trip's entry and a program's share."""
+
+    graph = None
+    tally = cr_tally = None
+    pool_bytes = 0
+    static_bytes = 0
+
+    def _warm(self) -> None:
+        """One eager :meth:`step` on a side stream: it builds what the
+        step launches (the KKT kernel, its shared-memory attribute), and
+        is torch's warm-up before a capture."""
+        here = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            self.step()
+        here.wait_stream(side)
+
+    def _capture(self):
+        """Capture one :meth:`step` and return what it returned, the
+        graph's output tensors."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with bt_cuda.recording() as tally, \
+                cyclic_reduction.recording() as cr_tally:
+            with torch.cuda.graph(graph):
+                reserved = torch.cuda.memory_reserved()
+                out = self.step()
+                self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.graph, self.tally, self.cr_tally = graph, tally, cr_tally
+        COUNTS["captures"] += 1
+        COUNTS["capture_s"] += time.perf_counter() - t0
+        return out
+
+    def _replayed(self, n: int) -> None:
+        """Count the launches of ``n`` replays."""
+        bt_cuda.replayed(self.tally, n)
+        cyclic_reduction.replayed(self.cr_tally, n)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class _Program(_Captured):
+    """One program key's argument buffers and, on a CUDA device, the
+    graph of its body and the graph's outputs."""
+
+    def __init__(self, body, tree):
+        self.body = body
+        leaves = tree_flatten(tree)
+        self.buffers = [_buffer(a) for a in leaves
+                        if isinstance(a, torch.Tensor)]
+        it = iter(self.buffers)
+        self.args, self.kwargs = tree_unflatten(tree, [
+            next(it) if isinstance(a, torch.Tensor) else a for a in leaves])
+        self.out = None
+        self.static_bytes = _nbytes(self.buffers)
+
+    def step(self):
+        """The body on the buffers: what the graph captures."""
+        return self.body(*self.args, **self.kwargs)
+
+    def run(self, tree):
+        """Copy a call's tensors in, run the body (on a CUDA device the
+        graph, captured on the first use) and return its result cloned
+        out of the buffers."""
+        for b, a in zip(self.buffers, (a for a in tree_flatten(tree)
+                                       if isinstance(a, torch.Tensor))):
+            b.copy_(a)
+        COUNTS["programs"] += 1
+        dev = self.buffers[0].device
+        if dev.type != "cuda":
+            out = self.step()
+        else:
+            with torch.cuda.device(dev):
+                if self.graph is None:
+                    self._warm()
+                    self.out = self._capture()
+                self.graph.replay()
+            self._replayed(1)
+            out = self.out
+        return tree_unflatten(out, [t.clone() for t in tree_flatten(out)])
+
+
+class _Entry(_Captured):
+    """One loop key's static buffers and, on a CUDA device, its graph."""
 
     def __init__(self, F: _ALFuncs, cfg: SolverConfig, st: dict, exps):
         self.cfg = cfg
@@ -216,11 +358,7 @@ class _Entry:
         self.active = torch.zeros((F.lb.shape[0],), dtype=torch.bool,
                                   device=dev)
         self.flag = torch.zeros((), dtype=torch.bool, device=dev)
-        self.graph = None
-        self.tally = self.cr_tally = None
-        self.pool_bytes = 0
-        self.static_bytes = sum(
-            t.numel() * t.element_size() for t in self._tensors())
+        self.static_bytes = _nbytes(self._tensors())
 
     def _tensors(self):
         yield from tree_flatten(self.F.data)
@@ -265,35 +403,14 @@ class _Entry:
             return
         with torch.cuda.device(dev):
             if self.graph is None:
-                self._first_trip()
+                # the first trip, eager: a real trip of the solve
+                self._warm()
+                COUNTS["trips"] += 1
                 self._capture()
                 if not bool(self.flag):  # one read, on a key's first use
                     return
             n = self._drive(self.graph.replay, lag)
-        bt_cuda.replayed(self.tally, n)
-        cyclic_reduction.replayed(self.cr_tally, n)
-
-    def _first_trip(self) -> None:
-        here = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            self.step()
-        here.wait_stream(side)
-        COUNTS["trips"] += 1
-
-    def _capture(self) -> None:
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with bt_cuda.recording() as tally, \
-                cyclic_reduction.recording() as cr_tally:
-            with torch.cuda.graph(graph):
-                reserved = torch.cuda.memory_reserved()
-                self.step()
-                self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.graph, self.tally, self.cr_tally = graph, tally, cr_tally
-        COUNTS["captures"] += 1
-        COUNTS["capture_s"] += time.perf_counter() - t0
+        self._replayed(n)
 
     def _drive(self, step, lag: int) -> int:
         """Run ``step`` until the flag of the trip ``lag`` trips back
@@ -317,4 +434,3 @@ class _Entry:
                     COUNTS["idle_trips"] += lag
                     return i + 1
             i += 1
-

@@ -1,10 +1,11 @@
 """Helpers of the port's parity tests: the JAX package's problem data
-carried into the port, and both packages' Hessian blocks at one seeded
-point."""
+carried into the port, both packages' Hessian blocks at one seeded
+point, and a dispatch mode that records host reads."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from etol_tpu.solve import al_sqp as jal
 from etol_tpu_torch.core import problem as tproblem
@@ -90,3 +91,29 @@ def uas_batch(B=8, seed=0, nsteps=12):
     tb = tproblem.vgpdata_from_numpy(
         [np.asarray(a) for a in jax.tree.leaves(jb)], device="cpu")
     return jnlp, jb, tnlp, tb
+
+
+class HostReads(TorchDispatchMode):
+    """Records the ops of a captured body (a solver trip, the seeds, a
+    planner) that would read the device from the host, or copy host data
+    to it, under a CUDA graph's capture."""
+
+    READS = ("_local_scalar_dense", "item", "nonzero", "lift_fresh",
+             "lift_fresh_copy")
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        src = args[0] if args and isinstance(args[0], torch.Tensor) else None
+        if name in self.READS:
+            self.seen.append(str(func))
+        elif name == "_to_copy" and kwargs.get("device") is not None and \
+                src is not None and kwargs["device"] != src.device:
+            self.seen.append(f"{func} {src.device} -> {kwargs['device']}")
+        elif name == "copy_" and args[0].device != args[1].device:
+            self.seen.append(f"{func} {args[1].device} -> {args[0].device}")
+        return func(*args, **kwargs)

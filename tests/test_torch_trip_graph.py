@@ -27,12 +27,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from etol_tpu.core import problem as jproblem
 from etol_tpu.models import problems as jproblems
 from etol_tpu.models.tuned import _TUNED as J_TUNED
 from etol_tpu.solve import al_sqp as jal
+from _torch_parity import HostReads
 from etol_tpu_torch.core import problem as tproblem
 from etol_tpu_torch.models import problems as tproblems
 from etol_tpu_torch.models import tuned as ttuned
@@ -156,31 +156,6 @@ def test_lagged_stop_is_the_per_trip_loop(case, lag):
     assert trip_graph.COUNTS["eager_trips"] == before["eager_trips"]
 
 
-class _HostReads(TorchDispatchMode):
-    """Records the ops of a trip that would read the device from the
-    host, or copy host data to it, under a CUDA graph's capture."""
-
-    READS = ("_local_scalar_dense", "item", "nonzero", "lift_fresh",
-             "lift_fresh_copy")
-
-    def __init__(self):
-        super().__init__()
-        self.seen = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = func.overloadpacket.__name__
-        src = args[0] if args and isinstance(args[0], torch.Tensor) else None
-        if name in self.READS:
-            self.seen.append(str(func))
-        elif name == "_to_copy" and kwargs.get("device") is not None and \
-                src is not None and kwargs["device"] != src.device:
-            self.seen.append(f"{func} {src.device} -> {kwargs['device']}")
-        elif name == "copy_" and args[0].device != args[1].device:
-            self.seen.append(f"{func} {args[1].device} -> {args[0].device}")
-        return func(*args, **kwargs)
-
-
 class _OneTrip(Exception):
     pass
 
@@ -193,7 +168,7 @@ def test_trip_reads_nothing_on_the_host(case, monkeypatch):
     seen = []
 
     def recorded(self):
-        with _HostReads() as mode:
+        with HostReads() as mode:
             step(self)
         seen.append(mode.seen)
         raise _OneTrip
