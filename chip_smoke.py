@@ -11,7 +11,9 @@ result line:
 
 1. device  — CUDA must be available; the card's name and power limit;
 2. build   — compile the KKT kernel (``etol_tpu_torch/csrc/bt_solve.cu``)
-             with nvcc from this checkout and load it;
+             and the device loop (``etol_tpu_torch/csrc/graph_loop.cu``)
+             with nvcc from this checkout, one nvcc each at once, and
+             load them;
 3. kernel  — the two kernels of the source (the shared-memory one the
              paths launch wherever a lane's factor fits a block, and the
              stream one they launch for longer horizons) against the
@@ -37,30 +39,38 @@ result line:
              B=2048, shooting seeds, the staged cold solve, the obstacle
              audit, and the warm fleet re-solve on x0 + 0.01; the kernel's
              launch count, by batch size, over exactly that run;
-4b. graph  — the solver loop captured as a CUDA graph
-             (``solve/trip_graph.py``) against the eager loop with a host
-             sync a trip: the main path's phase-1 cold solve (uas_2d N=50,
-             B=2048, the bench's seeds) eager, on the graph (its first use:
-             a warm-up trip and the capture), on the graph with the stop
-             flag read at once (lag 0) and a trip late (lag 1, the
-             default), and eager again; then ``run_mpc`` (GRAPH_MPC_STEPS
-             ticks, B=1) eager, on the graph and at lag 0. Statuses and
-             iterations equal and z, obj, multipliers and penalties
-             bitwise equal (else within GRAPH_TOL), the MPC's ticks one
-             capture; each side's trips, seconds, ms a trip, the card's
-             busy share (trips times one trip's replay time over the wall
-             time), captures, capture seconds and pool bytes. Before
-             them the bench's seeds at B=2048 (``shooting.plan_guess``,
+4b. graph  — the bench's seeds at B=2048 (``shooting.plan_guess``,
              256 walks and 16 pulled rollouts, a program of
              ``trip_graph``) eager, on the graph (its key's first use:
-             an eager run, the capture, a replay), on the graph again
+             an eager run, then the capture), on the graph again
              and eager again: z0 bitwise equal, ms, the card's own ms of
-             a replay, busy share, captures and pool bytes. Every phase
-             runs on graphs (all but the horizon solve over ranks, a
-             collective) and ends with its captures, trips on graphs,
-             idle trips past a stop (each launches the kernel once, and
-             the launch checks count them), eager trips and program
-             calls on graphs;
+             a replay, busy share, captures and pool bytes;
+4c. loop   — the solver loop as one graph launch, a while node whose
+             stop test runs on the card (``ops/graph_loop.py``, built
+             from ``csrc/graph_loop.cu``), against the eager loop (a host
+             sync a trip) and the replayed trip (the flag read a trip
+             late, one idle trip a solve), in turns: eager, the device
+             loop's first use, replay, device loop twice, replay. On (i)
+             the main path's phase-1 cold solve (uas_2d N=50, B=2048, the
+             bench's seeds), (ii) the whole staged cold solve at B=2048
+             with the bench's stages (one captured program: phase 1, each
+             stage's gather and loop, the merges) and (iii) 20 MPC ticks
+             at B=1 (``run_mpc``: p50 and pipelined ms). Every device-loop
+             result bitwise the eager route's (the MPC's cold solve and
+             every tick), the replays' within GRAPH_TOL, one launch of the
+             kernel a trip, no idle trip, one graph launch a solve and
+             captures on a key's first use only; each side's trips (the
+             device counter's), launches,
+             idle trips, ms a trip, the card's own trip, busy share,
+             graph launches, captures, capture seconds and pool bytes;
+             the CUDA runtime, CUDA driver and nvcc versions; then the loop's
+             own cost a trip on a two-kernel body against the same body
+             replayed with a host read a trip. Every phase runs its loops
+             on the device loop (all but the horizon solve over ranks, a
+             collective) and ends with its captures, trips on static
+             buffers and in device loops, graph launches, eager trips and
+             program calls; an idle trip outside this phase fails the
+             run;
 5. a/b     — B=64, N=50 cold solves with the kernel and with the plain
              "scan" KKT path, both on the card;
 6. cr      — cyclic reduction (plain torch ops, no kernel of its own)
@@ -160,8 +170,10 @@ result line:
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py
 --phases kernel,cr`` runs phases 1 and 2 and the named ones only, and
-prints neither line.
+prints neither line; ``python3 chip_smoke.py loop`` (that one argument
+alone) runs the loop phase so.
 """
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -329,14 +341,20 @@ MPC_STEPS, MPC_CR_STEPS = 10, 5
 # phase 9, fw100's warm A/B: the starts move by this much (km; the ladder
 # scatters them within 0.05), and a re-solve gets this many iterations
 WARM_DRIFT, WARM_BUDGET = 0.005, 60
-PHASES = ("kernel", "main", "graph", "a/b", "cr", "mpc", "bench", "ladder", "facade",
-          "exact", "planners", "fleet", "parallel", "variants")
+PHASES = ("kernel", "main", "graph", "loop", "a/b", "cr", "mpc", "bench",
+          "ladder", "facade", "exact", "planners", "fleet", "parallel",
+          "variants")
 # the graph phase: replays a timed run of one trip's graph, and the
 # difference allowed between the graph's results and the eager loop's
 # where they are not bitwise equal
 GRAPH_REPS = 10
 GRAPH_TOL = 1e-6
-GRAPH_MPC_STEPS = 20
+# the loop phase: MPC ticks, the trips of the loop's own timing, and the
+# bytes its condition kernel moves a trip (the flag read, the two
+# counters read and written)
+LOOP_MPC_STEPS = 20
+LOOP_BENCH_TRIPS = 1000
+LOOP_COND_BYTES = 1 + 2 * 16
 # the planners phase: the planner-seeded solves, and the facade's budget
 # on ocp_2d_ex1.xml: 4 s, 8192 samples, a quarter of its problem-derived
 # 16 s (32768 samples, 511 trips a tree, 48 s of the phase on a slower
@@ -345,10 +363,12 @@ SEEDED = ("RRT", "SST", "PDST")
 FACADE_PLAN_SECONDS = 4.0
 
 CARD = None
-# the solver loop's module (etol_tpu_torch.solve.trip_graph), once built,
-# and its idle-trip count when the path's counts were last reset
-TG = None
-IDLE0 = 0
+# the solver loop's module (etol_tpu_torch.solve.trip_graph) and the
+# device loop's (etol_tpu_torch.ops.graph_loop), once built
+TG = GL = None
+# the phases whose replay route runs idle trips past a stop (a run of
+# any other phase with one fails: every loop there is the device loop)
+REPLAY_PHASES = ("loop",)
 
 
 def say(phase, msg):
@@ -369,20 +389,27 @@ class Clock:
                    f"({now - self.start:.1f} s since the start)")
         self.last = now
         if TG is not None:
-            c = dict(TG.COUNTS)
+            TG.settle()
+            c = dict(TG.COUNTS, cond_launches=GL.LAUNCHES,
+                     loop_trips=GL.TRIPS)
             was = self.graphs or dict.fromkeys(c, 0)
-            say(phase, f"solver loop: {c['captures'] - was['captures']} "
-                       f"captures in {c['capture_s'] - was['capture_s']:.2f}"
-                       f" s, {c['trips'] - was['trips']} trips on graphs "
-                       f"({c['idle_trips'] - was['idle_trips']} of them "
-                       f"idle past the stop), "
-                       f"{c['eager_trips'] - was['eager_trips']} eager "
-                       f"trips, {c['programs'] - was['programs']} program "
-                       f"calls on graphs; {len(TG._CACHE)} graphs cached, "
-                       f"pools "
-                       f"{TG.pool_bytes()} bytes, static buffers "
-                       f"{TG.static_bytes()} bytes")
+            d = {k: c[k] - was[k] for k in c}
+            say(phase, f"solver loop: {d['captures']} captures in "
+                       f"{d['capture_s']:.2f} s, {d['trips']} trips on "
+                       f"static buffers ({d['loop_trips']} of them in "
+                       f"device loops, {d['idle_trips']} idle past a "
+                       f"replayed stop), {d['eager_trips']} eager trips, "
+                       f"{d['loop_graphs']} launches of graphs holding a "
+                       f"loop, {d['cond_launches']} condition-kernel "
+                       f"launches, {d['programs']} program calls on "
+                       f"graphs; {len(TG._CACHE)} keys "
+                       f"cached, pools {TG.pool_bytes()} bytes, static "
+                       f"buffers {TG.static_bytes()} bytes")
             self.graphs = c
+            if d["idle_trips"] and phase not in REPLAY_PHASES:
+                raise AssertionError(
+                    f"{phase}: {d['idle_trips']} idle trips: every loop "
+                    "of this phase should run on the device loop")
 
 
 def card_line():
@@ -775,23 +802,12 @@ def check_cr(torch, bt_cuda, btridiag, cyclic_reduction):
 
 
 def reset_counts(bt_cuda, cyclic_reduction):
-    """Every route's count to 0, just before a path is driven."""
+    """Every route's count to 0, just before a path is driven (what the
+    device loops ran before is read first, and goes to no path)."""
+    TG.settle()
     bt_cuda.LAUNCHES = 0
     bt_cuda.LAUNCHES_BY.clear()
     cyclic_reduction.SOLVES = 0
-    mark_idle()
-
-
-def mark_idle():
-    global IDLE0
-    IDLE0 = TG.COUNTS["idle_trips"]
-
-
-def idle():
-    """Trips run since the counts were last reset with every lane frozen,
-    past the stop of a captured loop (``trip_graph.LAG`` a solve): their
-    KKT solves launch, and count, with the others."""
-    return TG.COUNTS["idle_trips"] - IDLE0
 
 
 def latest(kind):
@@ -834,6 +850,7 @@ def graph_side(torch, bt_cuda, cyclic_reduction, label, run, route=None,
         out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    TG.settle()
     c = {k: TG.COUNTS[k] - c0[k] for k in c0}
     side = dict(
         wall_s=wall, trips=c["trips"] + c["eager_trips"],
@@ -864,109 +881,318 @@ def same_result(torch, a, b, fields=("z", "obj", "lam_def", "lam_eq", "mu",
 
 
 def check_graph(torch, bench_harness, bt_cuda, cyclic_reduction):
-    """Phase 4b: the bench's seeds (:func:`check_seeds`), then the solver
-    loop captured as a CUDA graph against the
-    eager loop with a sync a trip: the main path's phase-1 cold solve
-    (uas_2d N=50, B=MAIN_B, the bench's seeds) eager, on the graph (its
-    key's first use: a warm-up trip and the capture), on the graph again
-    with the stop read at once (lag 0) and a trip late (lag 1), and eager
-    again; then ``bench_harness.run_mpc`` eager, on the graph, and on the
-    graph at lag 0. Results must be bitwise the eager loop's (else within
-    GRAPH_TOL); every side's trips, seconds, ms a trip, the card's busy
-    share (trips times one trip's replay time over the wall time),
-    captures, capture seconds and pool bytes are printed."""
+    """Phase 4b: the bench's seeds on their program's graph
+    (:func:`check_seeds`)."""
     from etol_tpu_torch.models.tuned import tuned_extras
-    from etol_tpu_torch.solve import al_sqp
 
-    out = {"seeds": {}, "main": {}, "mpc": {}}
-    nlp, cfg, _, data, gen = bench_harness.prepare(MAIN_B, MAIN_NSTEPS)
+    out = {"seeds": {}}
+    nlp, _, _, data, gen = bench_harness.prepare(MAIN_B, MAIN_NSTEPS)
+    check_seeds(torch, bt_cuda, cyclic_reduction, nlp, data, gen,
+                tuned_extras("uas_2d"), out["seeds"])
+    return out
+
+
+def bitwise(torch, a, b):
+    """Whether two results (trees of tensors) are bitwise equal, and the
+    largest difference of their float leaves."""
+    from etol_tpu_torch.core.problem import tree_flatten
+
+    diff, equal = 0.0, True
+    for x, y in zip(tree_flatten(a), tree_flatten(b)):
+        if not torch.equal(x, y):
+            equal = False
+            if x.is_floating_point():
+                diff = max(diff, float((x - y).abs().max()))
+            else:
+                diff = float("inf")
+    return equal, diff
+
+
+def loop_side(torch, bt_cuda, cyclic_reduction, label, run, route):
+    """:func:`graph_side` with the device loop's counts: the trips its
+    condition kernel ran, its launches and the launches of graphs that
+    hold a loop."""
+    TG.settle()
+    g0 = (GL.LAUNCHES, GL.TRIPS, TG.COUNTS["loop_graphs"])
+    out, side = graph_side(torch, bt_cuda, cyclic_reduction, label, run,
+                           route)
+    side.update(cond_launches=GL.LAUNCHES - g0[0],
+                loop_trips=GL.TRIPS - g0[1],
+                graph_launches=TG.COUNTS["loop_graphs"] - g0[2])
+    return out, side
+
+
+def absorb(entries):
+    """Count the device counters' gains of ``entries`` (from launches made
+    only to time them) as read, so no path's counts take them."""
+    for e in entries:
+        e.read = tuple(e.counts.tolist())
+
+
+def loop_ms(torch, reps=LOOP_BENCH_TRIPS):
+    """The loop's own cost a trip, on a body of two small kernels (a
+    counter and its flag): the device loop (one graph launch between CUDA
+    events) against the plain version, the same body replayed with the
+    flag read on the host each trip (host clock, medians of 3 runs)."""
+    dev = torch.device("cuda")
+    n = torch.zeros((), dtype=torch.int64, device=dev)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def body():
+        n.add_(1)
+        flag.copy_(n < reps)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        body()
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer):
+        GL.insert(graph.raw_cuda_graph(), flag, counts)
+
+    def reset():
+        n.zero_()
+        flag.fill_(True)
+
+    def device_loop():
+        reset()
+        outer.replay()
+
+    def plain():
+        reset()
+        GL.plain(graph.replay, flag)
+
+    dev_ms = _median_event_ms(torch, device_loop, 3, reps)
+    if int(n) != reps or counts.tolist()[1] % reps:
+        raise AssertionError(f"the timed device loop ran {int(n)} trips, "
+                             f"not {reps}")
+    plain_ms = host_ms(torch, plain, 3) / reps
+    return dict(ms=dev_ms, plain_ms=plain_ms, trips=reps,
+                bound_ms=1e3 * LOOP_COND_BYTES / HBM_BYTES_PER_S,
+                bound_by="bytes")
+
+
+def check_loop(torch, bench_harness, bt_cuda, cyclic_reduction):
+    """Phase 4c: the solver loop as one graph launch with its stop test on
+    the card (a while node, ``ops/graph_loop.py``) against the eager loop
+    (a host sync a trip) and the replayed trip (the host reads the flag
+    a trip late): (i) the main path's phase-1 cold solve (uas_2d N=50,
+    B=MAIN_B, the bench's seeds), (ii) the whole staged cold solve at
+    B=MAIN_B with the bench's stages (on the device loop one captured
+    program: phase 1, each stage's gather and loop, the merges), (iii)
+    LOOP_MPC_STEPS MPC ticks at B=1. Each kind's loop keys and staged
+    programs are dropped first, so its first use on the device loop makes
+    them. Sides in turns: eager, the device loop's first use, replay,
+    device loop, device loop, replay (the MPC: eager, first use, replay,
+    replay, device loop). Every device-loop result must be bitwise the
+    eager route's (the MPC's cold solve and every tick), the replays
+    within GRAPH_TOL (the MPC's too); the device loop runs no idle trip,
+    launches the kernel once a trip and launches one graph a solve;
+    captures happen on a key's first use only. Each side: trips (the
+    device counter's on the device loop), launches, idle trips, ms a
+    trip, the card's own trip (the trip's graph replayed back to back)
+    and the busy share (trips times that over the wall time), graph
+    launches, captures, capture seconds, pool bytes. Then the loop's own
+    cost a trip on a two-kernel body (:func:`loop_ms`)."""
+    from etol_tpu_torch.models.tuned import tuned_extras
+    from etol_tpu_torch.solve import al_sqp, shooting
+
+    out = {"versions": dict(GL.VERSIONS, torch_cuda=torch.version.cuda),
+           "phase1": {}, "staged": {}, "mpc": {}}
+    nlp, cfg, stages, data, gen = bench_harness.prepare(MAIN_B, MAIN_NSTEPS)
     extras = tuned_extras("uas_2d")
-    z0 = check_seeds(torch, bt_cuda, cyclic_reduction, nlp, data, gen,
-                     extras, out["seeds"])
+    z0 = shooting.plan_guess(nlp, data, extras["seed_walks"], gen,
+                             pulled=extras["seed_pulled"])
+    def drop():
+        """Every loop key and staged program, so that a kind's first use
+        here makes its own."""
+        TG.settle()
+        for key in [k for k, e in TG._CACHE.items()
+                    if isinstance(e, TG._Entry) or e.parts]:
+            del TG._CACHE[key]
 
+    sides = (("eager", "eager"), ("loop_first", None), ("replay", "replay"),
+             ("loop", None), ("loop_again", None),
+             ("replay_again", "replay"))
+
+    def run_sides(kind, run, sides=sides):
+        drop()
+        results = {}
+        for name, route in sides:
+            results[name], out[kind][name] = loop_side(
+                torch, bt_cuda, cyclic_reduction, f"loop {kind} {name}", run,
+                route)
+        return results
+
+    def held(kind, results, ref, trips):
+        """Each side against the eager one: bitwise on the device loop,
+        within GRAPH_TOL on the replay; the device loop's counts."""
+        for name, side in out[kind].items():
+            equal, diff = bitwise(torch, ref, results[name])
+            side.update(bitwise=equal, max_abs_diff=diff)
+            if name.startswith("loop"):
+                if not equal:
+                    raise AssertionError(
+                        f"loop {kind} {name}: not bitwise the eager "
+                        f"route's (max |d| {diff})")
+                if side["idle_trips"] or side["launches"] != trips or \
+                        side["trips"] != trips:
+                    raise AssertionError(
+                        f"loop {kind} {name}: {side['launches']} launches "
+                        f"and {side['trips']} trips ({side['idle_trips']} "
+                        f"idle) for {trips}: one launch a trip, no idle "
+                        "trip")
+            elif name.startswith("replay") and not diff <= GRAPH_TOL:
+                raise AssertionError(f"loop {kind} {name}: max |d| {diff}")
+
+    # (i) phase 1
     def phase1():
         return al_sqp.solve_batched(nlp, cfg, data, z0)
 
-    sides = (("eager", "eager", None), ("graph_first", None, None),
-             ("graph_lag0", None, 0), ("graph", None, None),
-             ("eager_again", "eager", None))
-    results = {}
-    for name, route, lag in sides:
-        results[name], out["main"][name] = graph_side(
-            torch, bt_cuda, cyclic_reduction, f"main {name}", phase1,
-            route, lag)
-    dev_ms = trip_device_ms(torch)
+    results = run_sides("phase1", phase1)
     ref = results["eager"]
-    for name, _, _ in sides:
-        side = out["main"][name]
-        side["device_ms_a_trip"] = dev_ms
-        side["busy"] = dev_ms * side["trips"] / (1e3 * side["wall_s"])
-        diff, counts_equal = same_result(torch, ref, results[name])
-        side.update(max_abs_diff=diff, counts_equal=counts_equal)
-        say("graph", f"main phase 1, uas_2d N={MAIN_NSTEPS} B={MAIN_B}, "
-                     f"{name}: {json.dumps(side)}")
-        if not counts_equal or not diff <= GRAPH_TOL:
-            raise AssertionError(
-                f"main phase 1 {name}: statuses or iterations differ from "
-                f"the eager loop's, or max |dz| {diff} > {GRAPH_TOL}")
-    g = out["main"]["graph"]
-    if out["main"]["graph_first"]["captures"] != 1 or g["captures"] or \
-            g["idle_trips"] != 1 or out["main"]["eager"]["captures"]:
-        raise AssertionError("the phase-1 solve should capture once, on "
-                             "its first graph run, and run one idle trip "
-                             "a later one")
     trips = int(ref.inner_iters.max())
-    n_smem = sum(n for k, n in g["launches_by"].items()
-                 if k.startswith("smem_K51_w5_"))
-    if g["launches"] != trips + g["idle_trips"] or n_smem != g["launches"]:
-        raise AssertionError(
-            f"graph: {g['launches']} launches for {trips} trips and "
-            f"{g['idle_trips']} idle: every replay should count its one "
-            "launch of the shared-memory kernel")
-    say("graph", f"main phase 1: {trips} trips; eager "
-                 f"{out['main']['eager']['ms_a_trip']:.2f} ms a trip, graph "
-                 f"{g['ms_a_trip']:.2f} (lag 0: "
-                 f"{out['main']['graph_lag0']['ms_a_trip']:.2f}), the "
-                 f"card's own {dev_ms:.3f} ms a trip")
+    held("phase1", results, ref, trips)
+    dev_ms = trip_device_ms(torch)
+    for name, side in out["phase1"].items():
+        side.update(device_ms_a_trip=dev_ms,
+                    busy=dev_ms * side["trips"] / (1e3 * side["wall_s"]))
+        say("loop", f"phase 1, uas_2d N={MAIN_NSTEPS} B={MAIN_B}, {name}: "
+                    f"{json.dumps(side)}")
+    p1 = out["phase1"]
+    if tuple(p1[n]["graph_launches"] for n in (
+            "loop_first", "loop", "loop_again")) != (1, 1, 1) or tuple(
+            p1[n]["captures"] for n in (
+            "loop_first", "replay", "loop", "loop_again",
+            "replay_again")) != (1, 0, 0, 0, 0) or (
+            p1["loop"]["loop_trips"] != trips):
+        raise AssertionError("phase 1 on the device loop: one capture on "
+                             "its first use and none after, one graph "
+                             "launch a solve running every trip")
+    say("loop", f"phase 1: {trips} trips; ms a trip eager "
+                f"{p1['eager']['ms_a_trip']:.3f}, replay "
+                f"{p1['replay']['ms_a_trip']:.3f} / "
+                f"{p1['replay_again']['ms_a_trip']:.3f}, device loop "
+                f"{p1['loop']['ms_a_trip']:.3f} / "
+                f"{p1['loop_again']['ms_a_trip']:.3f}, the card's own "
+                f"{dev_ms:.3f}")
 
-    # -- the MPC re-solve: 20 ticks, one problem
+    # (ii) the staged cold solve
+    def cold():
+        return al_sqp.solve_batched_staged(nlp, cfg, data, z0, stages,
+                                           return_stage_trips=True)
+
+    results = run_sides("staged", cold)
+    ref, stage_trips = results["eager"]
+    program = next(e for e in reversed(TG._CACHE.values())
+                   if isinstance(e, TG._Program) and e.parts)
+    torch.cuda.synchronize()
+    staged_dev_ms = _median_event_ms(torch, program.graph.replay, 3, 1)
+    torch.cuda.synchronize()
+    absorb(program.parts)
+    for name, side in out["staged"].items():
+        side.update(stage_trips=list(results[name][1]),
+                    device_ms=staged_dev_ms,
+                    busy=staged_dev_ms / (1e3 * side["wall_s"]))
+        if side["stage_trips"] != list(stage_trips):
+            raise AssertionError(f"loop staged {name}: stage trips "
+                                 f"{side['stage_trips']}, eager "
+                                 f"{list(stage_trips)}")
+    held("staged", {k: v[0] for k, v in results.items()}, ref,
+         sum(stage_trips))
+    for name, side in out["staged"].items():
+        say("loop", f"staged cold solve, uas_2d N={MAIN_NSTEPS} "
+                    f"B={MAIN_B}, stages {stages}, {name}: "
+                    f"{json.dumps(side)}")
+    st = out["staged"]
+    if (st["loop"]["graph_launches"], st["loop_again"]["graph_launches"],
+            st["loop"]["programs"], st["loop_first"]["captures"]) != (
+            1, 1, 1, len(stages) + 2) or any(
+            st[n]["captures"] for n in (
+                "replay", "loop", "loop_again", "replay_again")):
+        raise AssertionError(
+            "the staged solve on the device loop: its first use captures "
+            "each loop's trip and the program, then one launch of the "
+            "program's graph a solve and no capture")
+    say("loop", f"staged cold solve: stage trips {list(stage_trips)}; wall "
+                f"ms eager {1e3 * st['eager']['wall_s']:.1f}, replay "
+                f"{1e3 * st['replay']['wall_s']:.1f} / "
+                f"{1e3 * st['replay_again']['wall_s']:.1f}, device loop "
+                f"first use {1e3 * st['loop_first']['wall_s']:.1f}, then "
+                f"{1e3 * st['loop']['wall_s']:.1f} / "
+                f"{1e3 * st['loop_again']['wall_s']:.1f}; the card's own "
+                f"{staged_dev_ms:.1f} ms a launch; pool "
+                f"{sum(e.pool_bytes for e in (program, *program.parts))} "
+                f"bytes (glue {program.pool_bytes})")
+
+    # (iii) the MPC re-solve at B=1
     nlp1, cfg1, _, _, _ = bench_harness.prepare(1, MAIN_NSTEPS)
     single = bench_harness.single_problem(MAIN_NSTEPS)
-    mpc = {}
-    for name, route, lag in (("eager", "eager", None), ("graph", None, None),
-                             ("graph_lag0", None, 0)):
-        mpc[name], side = graph_side(
-            torch, bt_cuda, cyclic_reduction, f"mpc {name}",
-            lambda: bench_harness.run_mpc(nlp1, cfg1, single,
-                                          steps=GRAPH_MPC_STEPS),
-            route, lag)
-        side.update(p50_ms=mpc[name]["p50_ms"],
-                    pipelined_ms=mpc[name]["pipelined_ms"],
-                    statuses=mpc[name]["statuses"],
-                    iters=mpc[name]["iters"])
-        out["mpc"][name] = side
+    mpc_sides = (("eager", "eager"), ("loop", None), ("replay", "replay"),
+                 ("replay_again", "replay"), ("loop_again", None))
+    mpc = run_sides("mpc", lambda: bench_harness.run_mpc(
+        nlp1, cfg1, single, steps=LOOP_MPC_STEPS), mpc_sides)
     dev1 = trip_device_ms(torch)
+    ref = mpc["eager"]
+    # the cold solve, the untimed first re-solve, the timed ones and the
+    # ones dispatched back to back
+    solves = 2 + 2 * LOOP_MPC_STEPS
     for name, side in out["mpc"].items():
-        side["device_ms_a_trip"] = dev1
-        side["busy"] = dev1 * side["trips"] / (1e3 * side["wall_s"])
-        diff, counts_equal = same_result(torch, mpc["eager"]["cold"],
-                                         mpc[name]["cold"])
-        side.update(cold_max_abs_diff=diff, cold_counts_equal=counts_equal)
-        say("graph", f"mpc uas_2d N={MAIN_NSTEPS}, {GRAPH_MPC_STEPS} ticks, "
-                     f"{name}: {json.dumps(side)}")
-        if (side["statuses"] != out["mpc"]["eager"]["statuses"]
-                or side["iters"] != out["mpc"]["eager"]["iters"]
-                or not counts_equal or not diff <= GRAPH_TOL):
-            raise AssertionError(f"mpc {name}: statuses, iterations or the "
-                                 "cold result differ from the eager loop's")
-    if out["mpc"]["graph"]["captures"] != 1:
-        raise AssertionError(
-            f"the MPC run captured {out['mpc']['graph']['captures']} "
-            "graphs: its cold solve and every tick share one key")
-    say("graph", f"mpc p50: eager {out['mpc']['eager']['p50_ms']:.2f} ms, "
-                 f"graph {out['mpc']['graph']['p50_ms']:.2f} ms (lag 0: "
-                 f"{out['mpc']['graph_lag0']['p50_ms']:.2f}), one capture "
-                 f"for the cold solve and all {GRAPH_MPC_STEPS} ticks")
+        m = mpc[name]
+        held_ = [bitwise(torch, a, b) for a, b in zip(
+            [ref["cold"]] + ref["ticks"], [m["cold"]] + m["ticks"])]
+        equal = all(e for e, _ in held_)
+        diff = max(d for _, d in held_)
+        side.update(p50_ms=m["p50_ms"], pipelined_ms=m["pipelined_ms"],
+                    statuses=m["statuses"], iters=m["iters"],
+                    bitwise=equal, max_abs_diff=diff, device_ms_a_trip=dev1,
+                    busy=dev1 * side["trips"] / (1e3 * side["wall_s"]))
+        say("loop", f"mpc uas_2d N={MAIN_NSTEPS}, {LOOP_MPC_STEPS} ticks, "
+                    f"{name}: {json.dumps(side)}")
+        if m["statuses"] != ref["statuses"] or m["iters"] != ref["iters"]:
+            raise AssertionError(f"mpc {name}: statuses or iterations "
+                                 "differ from the eager route's")
+        if name.startswith("loop") and (
+                not equal or side["idle_trips"]
+                or side["launches"] != side["trips"]
+                or side["graph_launches"] != solves):
+            raise AssertionError(f"mpc {name}: the cold solve or a tick is "
+                                 "not bitwise the eager route's, a launch "
+                                 "is not a trip, or a solve is not one "
+                                 f"graph launch ({side['graph_launches']} "
+                                 f"for {solves})")
+        if name.startswith("replay") and not diff <= GRAPH_TOL:
+            raise AssertionError(f"mpc {name}: the cold solve or a tick "
+                                 f"differs from the eager route's by {diff}")
+        if side["captures"] != (name == "loop"):
+            raise AssertionError(f"mpc {name}: {side['captures']} captures; "
+                                 "the cold solve and every tick share one "
+                                 "key, captured once on its first use")
+    m = out["mpc"]
+    say("loop", f"mpc: p50 eager {m['eager']['p50_ms']:.2f} ms, replay "
+                f"{m['replay']['p50_ms']:.2f} / "
+                f"{m['replay_again']['p50_ms']:.2f}, device loop "
+                f"{m['loop']['p50_ms']:.2f} / {m['loop_again']['p50_ms']:.2f}"
+                f"; pipelined ms a tick replay "
+                f"{m['replay']['pipelined_ms']:.2f} / "
+                f"{m['replay_again']['pipelined_ms']:.2f}, device loop "
+                f"{m['loop']['pipelined_ms']:.2f} / "
+                f"{m['loop_again']['pipelined_ms']:.2f}; the card's own "
+                f"{dev1:.3f} ms a trip")
+
+    out["overhead"] = loop_ms(torch)
+    say("loop", f"the loop's own cost on a two-kernel body, "
+                f"{LOOP_BENCH_TRIPS} trips: device loop "
+                f"{out['overhead']['ms']:.5f} ms a trip, replayed with a "
+                f"host read each trip {out['overhead']['plain_ms']:.5f}")
+    out["max_abs_err"] = max(
+        side["max_abs_diff"] for kind in ("phase1", "staged")
+        for name, side in out[kind].items() if name.startswith("loop"))
     return out
 
 
@@ -1048,6 +1274,7 @@ def check_mpc(torch, bench_harness, bt_cuda, cyclic_reduction):
             nlp, dataclasses.replace(cfg, kkt_solver=route), single,
             steps=MPC_STEPS if route == "kernel" else MPC_CR_STEPS,
             pipelined=route == "kernel")
+        TG.settle()
         out["launches"] = bt_cuda.LAUNCHES
         out["cr_solves"] = cyclic_reduction.SOLVES
         by = dict(bt_cuda.LAUNCHES_BY)
@@ -1093,12 +1320,14 @@ def ab_runs(torch, bt_cuda, name, solve, other="scan"):
     kernel side must be at a checked shape."""
     runs = {}
     for kkt in ("kernel", other):
+        TG.settle()
         bt_cuda.LAUNCHES_BY.clear()
         t0 = time.perf_counter()
         runs[kkt], trips = solve(kkt)
         torch.cuda.synchronize()
         say("a/b", f"{name} {kkt}: stage trips {list(trips)} in "
                    f"{time.perf_counter() - t0:.1f} s")
+        TG.settle()
         assert_checked(f"{name} a/b ({kkt})", bt_cuda.LAUNCHES_BY)
     ab(torch, name, runs, other)
 
@@ -1133,12 +1362,13 @@ def check_ladder(torch, bench_scaling, bt_cuda):
         B = bdata.x0.shape[0]
         if cfg.kkt_solver != "kernel" or bdata.x0.device.type != "cuda":
             raise AssertionError(f"{name}: not the kernel on the card")
+        TG.settle()
         bt_cuda.LAUNCHES = 0
         bt_cuda.LAUNCHES_BY.clear()
-        mark_idle()
         run = bench_scaling.run_config(
             label, nlp, bdata, cfg, stages, reps=0, generator=gen,
             log=lambda line: say("ladder", line))
+        TG.settle()
         launches, by = bt_cuda.LAUNCHES, dict(bt_cuda.LAUNCHES_BY)
         say("ladder", f"{name}: kernel launches {launches} by (variant, K, "
                       f"w, B): {sorted(by.items(), key=lambda kv: -kv[0][3])}")
@@ -1148,10 +1378,8 @@ def check_ladder(torch, bench_scaling, bt_cuda):
                 f"{name}: solved {run['solved_fraction']} < 0.95")
         if not bool(torch.isfinite(res.z).all()):
             raise AssertionError(f"{name}: non-finite z")
-        # one KKT solve per Newton iteration (chord steps included), and
-        # a trip's worth for each idle trip
-        idle_launches = idle() * (1 + cfg.chord_steps)
-        if launches != sum(run["stage_trips"]) + idle_launches or any(
+        # one KKT solve per Newton iteration (chord steps included)
+        if launches != sum(run["stage_trips"]) or any(
                 key[:3] != ("smem", K, w) for key in by):
             raise AssertionError(
                 f"{name}: {launches} launches for stage trips "
@@ -1185,6 +1413,7 @@ def warm_ab(torch, bench_scaling, bt_cuda, name):
     al_sqp = bench_scaling.al_sqp
     _, nlp, bdata, cfg, stages, _, _ = bench_scaling.prepare(
         name, batch=AB_B)
+    TG.settle()
     bt_cuda.LAUNCHES_BY.clear()
     t0 = time.perf_counter()
     cold, trips = al_sqp.solve_batched_staged(
@@ -1192,6 +1421,7 @@ def warm_ab(torch, bench_scaling, bt_cuda, name):
     n_cold = int((cold.status == 1).sum())
     say("a/b", f"{name} kernel, cold: stage trips {list(trips)}, {n_cold} "
                f"of {AB_B} solved in {time.perf_counter() - t0:.1f} s")
+    TG.settle()
     assert_checked(f"{name} a/b (cold)", bt_cuda.LAUNCHES_BY)
     if n_cold < AB_B - 2:
         raise AssertionError(f"{name}: the cold solve left lanes unsolved")
@@ -1229,6 +1459,7 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
     def counts(path):
         """The counts since the last reset, every launch at a checked
         shape."""
+        TG.settle()
         by = dict(bt_cuda.LAUNCHES_BY)
         assert_checked(f"facade {path}", by)
         return bt_cuda.LAUNCHES, by, cyclic_reduction.SOLVES
@@ -1271,7 +1502,7 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
             (X_back - X.cpu().double()).abs().max()) > 1e-6 or float(
             (t_back - times.cpu().double()).abs().max()) > 1e-6:
         raise AssertionError("the saved CSV does not read back")
-    if by != {("smem", 33, 4, 1): iters + idle()} or cr_solves:
+    if by != {("smem", 33, 4, 1): iters} or cr_solves:
         raise AssertionError(
             f"facade.solve(): {iters} iterations should be {iters} launches"
             f" of the shared-memory kernel at (33, 4, 1), and no cyclic "
@@ -1308,7 +1539,7 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
                       f"solves")
         if statuses != [SOLVED] * steps:
             raise AssertionError(f"mpc_step under {route}: {statuses}")
-        n = sum(its) + idle()
+        n = sum(its)
         want = ((n, 0) if route == "kernel" else (0, n))
         if (launches, cr_solves) != want or (
                 by and set(by) != {("smem", 33, 4, 1)}):
@@ -1476,6 +1707,7 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
     out = {}
 
     def counts(path):
+        TG.settle()
         by = dict(bt_cuda.LAUNCHES_BY)
         assert_checked(f"exact {path}", by)
         return bt_cuda.LAUNCHES, by, cyclic_reduction.SOLVES
@@ -1511,7 +1743,7 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
         if mres.status != SOLVED or not mres.certified or not abs(
                 mres.obj - MIP_GOLDEN) <= MIP_TOL:
             raise AssertionError(f"exact mip under {route}: {f}")
-        n = mres.trips + idle()
+        n = mres.trips
         want = ((n, 0) if route == "kernel" else (0, n))
         if (launches, cr_solves) != want or (
                 by and set(by) != {("smem",) + EXACT_SHAPES[0]}):
@@ -1561,7 +1793,7 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
             (X_back - X.cpu().double()).abs().max()) > 1e-6:
         raise AssertionError("the composed demo's trajectory does not "
                              "save and read back from the card")
-    if launches != mres.trips + idle() or set(by) != {
+    if launches != mres.trips or set(by) != {
             ("smem",) + EXACT_SHAPES[1]}:
         raise AssertionError(f"exact composed: {launches} launches {by} "
                              f"for {mres.trips} trips")
@@ -1700,6 +1932,7 @@ def check_planners(torch, bt_cuda, cyclic_reduction):
                            data, z0)
         sync()
         secs = time.perf_counter() - t0
+        TG.settle()
         by = dict(bt_cuda.LAUNCHES_BY)
         iters = int(res.inner_iters)
         found = dict(status=int(res.status), obj=float(res.obj),
@@ -1712,7 +1945,7 @@ def check_planners(torch, bt_cuda, cyclic_reduction):
         on_card(f"{name}-seeded solve", res.z)
         if found["status"] != SOLVED:
             raise AssertionError(f"the {name}-seeded solve: {found}")
-        if by != {("smem",) + B1_SHAPE: iters + idle()} or \
+        if by != {("smem",) + B1_SHAPE: iters} or \
                 found["cr_solves"]:
             raise AssertionError(
                 f"the {name}-seeded solve: {iters} iterations should be "
@@ -1769,6 +2002,7 @@ def check_fleet(torch, bt_cuda, cyclic_reduction):
         res = solve(nlp, al_sqp.SolverConfig(kkt_solver=route), data, *args)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        TG.settle()
         by = dict(bt_cuda.LAUNCHES_BY)
         assert_checked(f"fleet {label}", by)
         if res.z.device.type != "cuda" or not bool(
@@ -1802,7 +2036,7 @@ def check_fleet(torch, bt_cuda, cyclic_reduction):
                 or found["dmin"] < FLEET_DMIN:
             raise AssertionError(f"fleet V=3 under {route}: {found}")
         if found["launches"] or \
-                found["cr_solves"] != found["iters"] + idle() or \
+                found["cr_solves"] != found["iters"] or \
                 found["iters"] <= 0:
             raise AssertionError(
                 f"fleet V=3 under {route}: w=12 should take cyclic "
@@ -1841,7 +2075,7 @@ def check_fleet(torch, bt_cuda, cyclic_reduction):
     if found["status"] != SOLVED or abs(found["obj"] / FLEET2_OBJ - 1) > \
             FLEET2_RTOL or found["dmin"] < FLEET_DMIN:
         raise AssertionError(f"fleet V=2: {found}")
-    if found["launches_by"] != {"K25_w8_B1": found["iters"] + idle()}:
+    if found["launches_by"] != {"K25_w8_B1": found["iters"]}:
         raise AssertionError(f"fleet V=2: launches {found['launches_by']}"
                              f" for {found['iters']} iterations")
     out["v2"] = found
@@ -1869,7 +2103,7 @@ def check_fleet(torch, bt_cuda, cyclic_reduction):
     if not found["solved_fraction"] >= 0.9 or not (
             found["min_dmin_solved"] >= FLEET_DMIN):
         raise AssertionError(f"the batch of fleets: {found}")
-    if found["launches_by"] != {f"K25_w8_B{batch}": trips + idle()}:
+    if found["launches_by"] != {f"K25_w8_B{batch}": trips}:
         raise AssertionError(f"the batch of fleets: launches "
                              f"{found['launches_by']} for {trips} trips")
     out["batch"] = found
@@ -1892,6 +2126,7 @@ def check_parallel(torch, bt_cuda, btridiag, cyclic_reduction):
     out = {}
 
     def counts(path):
+        TG.settle()
         by = dict(bt_cuda.LAUNCHES_BY)
         assert_checked(f"parallel {path}", by)
         return bt_cuda.LAUNCHES, {"K%d_w%d_B%d" % k[1:]: n
@@ -2129,6 +2364,7 @@ def check_variants(torch, bench_harness, bt_cuda, cyclic_reduction):
     out = {"uas": {}, "ocp": {}}
 
     def counts(path):
+        TG.settle()
         by = dict(bt_cuda.LAUNCHES_BY)
         assert_checked(f"variants {path}", by)
         if bt_cuda.LAUNCHES <= 0 or cyclic_reduction.SOLVES:
@@ -2275,14 +2511,31 @@ def main(phases=PHASES):
     from etol_tpu_torch.ops import bt_cuda, cyclic_reduction
     from etol_tpu_torch.solve import btridiag
 
+    from etol_tpu_torch.ops import graph_loop
     from etol_tpu_torch.solve import trip_graph
 
-    global TG
-    TG = trip_graph
+    global TG, GL
+    TG, GL = trip_graph, graph_loop
+    # both sources at once, one nvcc each
     t0 = time.perf_counter()
-    bt_cuda.build()
-    say("build", f"bt_solve.cu built and loaded in "
-                 f"{time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(bt_cuda.build), pool.submit(graph_loop.build)]
+        for done in builds:
+            done.result()
+    say("build", f"bt_solve.cu and graph_loop.cu built and loaded in "
+                 f"{time.perf_counter() - t0:.2f} s (nvcc "
+                 f"{bt_cuda.BUILD_SECONDS} s and "
+                 f"{graph_loop.BUILD_SECONDS} s)")
+    nvcc = subprocess.run([bt_cuda._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    versions = graph_loop.VERSIONS
+    say("build", f"CUDA runtime {versions['runtime']} (graph_loop.cu), CUDA "
+                 f"driver {versions['cuda_driver']}, torch's CUDA "
+                 f"{torch.version.cuda}, {nvcc[-1]}")
+    for line in graph_loop.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line:
+            say("build", "loop_cond_kernel: "
+                + line.replace("ptxas info    :", "").strip())
     entry = None
     for line in bt_cuda.BUILD_LOG.splitlines():
         m = re.search(r"bt_(smem|stream)_kernelILi(\d+)E", line)
@@ -2301,22 +2554,36 @@ def main(phases=PHASES):
 
     # 4. main path, on the default device
     if "main" in phases:
+        TG.settle()
         bt_cuda.LAUNCHES = 0
         bt_cuda.LAUNCHES_BY.clear()
-        programs = TG.COUNTS["programs"]
+        c0 = (TG.COUNTS["programs"], TG.COUNTS["trips"], GL.LAUNCHES,
+              GL.TRIPS)
         out = bench_harness.main_path(MAIN_B, MAIN_NSTEPS)
+        TG.settle()
         launches = bt_cuda.LAUNCHES
         launches_by = dict(bt_cuda.LAUNCHES_BY)
-        check_main(torch, out, launches, launches_by,
-                   TG.COUNTS["programs"] - programs)
+        main_loop = dict(programs=TG.COUNTS["programs"] - c0[0],
+                         trips=TG.COUNTS["trips"] - c0[1],
+                         cond_launches=GL.LAUNCHES - c0[2],
+                         loop_trips=GL.TRIPS - c0[3])
+        check_main(torch, out, launches, launches_by, main_loop)
         clock.lap("main")
 
-    # 4b. the solver loop on a CUDA graph against the eager loop
+    # 4b. the bench's seeds on their program's graph
     if "graph" in phases:
         graph = check_graph(torch, bench_harness, bt_cuda, cyclic_reduction)
         print(json.dumps({"phase": "graph", "card": CARD, **graph}),
               flush=True)
         clock.lap("graph")
+
+    # 4c. the solver loop as a device-side while, the staged solve as one
+    # program, against the eager and the replayed loop
+    if "loop" in phases:
+        loop = check_loop(torch, bench_harness, bt_cuda, cyclic_reduction)
+        print(json.dumps({"phase": "loop", "card": CARD, **loop}),
+              flush=True)
+        clock.lap("loop")
 
     # 5. in-situ A/B: kernel vs the plain scan path, same batch and seeds
     if "a/b" in phases:
@@ -2342,12 +2609,14 @@ def main(phases=PHASES):
     # 8. the bench entry point; its JSON line goes out on a line of its
     # own, well before the last two
     if "bench" in phases:
+        TG.settle()
         bt_cuda.LAUNCHES = 0
         bt_cuda.LAUNCHES_BY.clear()
         bench_line = bench_harness.bench(
             MAIN_B, MAIN_NSTEPS, iters=1,
             mpc=mpc["kernel"] if "mpc" in phases else None)
         print(json.dumps(bench_line), flush=True)
+        TG.settle()
         bench_launches = bt_cuda.LAUNCHES
         assert_checked("bench", bt_cuda.LAUNCHES_BY)
         ex = bench_line["extras"]
@@ -2491,6 +2760,26 @@ def main(phases=PHASES):
                         "pipelined_ms": run["pipelined_ms"],
                         "solved": run["statuses"].count(1)}
                 for route, run in mpc.items()},
+    }, {
+        "name": "graph_loop",
+        "route": "cuda",
+        "source": "etol_tpu_torch/csrc/graph_loop.cu",
+        # no TPU kernel: the device half of the solver loop's
+        # lax.while_loop, whose cond XLA runs on the device
+        "replaces": "etol_tpu/solve/al_sqp.py:1069",
+        "launches": main_loop["cond_launches"],
+        "trips": main_loop["loop_trips"],
+        "max_abs_err": loop["max_abs_err"],
+        "ms": loop["overhead"]["ms"],
+        "plain_ms": loop["overhead"]["plain_ms"],
+        "bound_ms": loop["overhead"]["bound_ms"],
+        "bound_by": loop["overhead"]["bound_by"],
+        "library_ms": None,
+        "loop": {kind: {name: {k: side[k] for k in (
+            "ms_a_trip", "trips", "launches", "idle_trips",
+            "graph_launches", "wall_s") if k in side}
+            for name, side in loop[kind].items()}
+            for kind in ("phase1", "staged", "mpc")},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2509,9 +2798,10 @@ def variant_counts(by):
     return out
 
 
-def check_main(torch, out, launches, launches_by, programs):
-    """Phase 4's findings and checks; ``programs`` is the count of
-    program calls on graphs over the main path (the seeds: one)."""
+def check_main(torch, out, launches, launches_by, loop):
+    """Phase 4's findings and checks; ``loop`` holds the main path's
+    program calls on graphs (the seeds and the two staged solves), its
+    trips, and the device loops' condition-kernel launches and trips."""
     cold, warm = out["cold"], out["warm"]
     res = warm["result"]
     say("main", f"uas_2d N={MAIN_NSTEPS} B={MAIN_B}: cold solved "
@@ -2525,13 +2815,22 @@ def check_main(torch, out, launches, launches_by, programs):
                 f"{cold['audit_node_depth_max']:.3e}, deepest mid-segment "
                 f"dip {cold['audit_midseg_depth_max']:.4f}")
     say("main", f"wall: seeds {cold['seed_s']:.3f} s on the graph (its "
-                f"key's first use: an eager run, the capture, a replay; "
+                f"key's first use: an eager run, then the capture; "
                 f"the graph phase times a replay), cold solve "
                 f"{cold['cold_s']:.2f} s, warm re-solve {warm['warm_s']:.2f}"
                 f" s")
-    if programs != 1:
-        raise AssertionError(f"the main path made {programs} program calls "
-                             "on graphs: its seeds should be one")
+    if loop["programs"] != 3:
+        raise AssertionError(f"the main path made {loop['programs']} "
+                             "program calls on graphs: its seeds, its cold "
+                             "staged solve and its warm one should be "
+                             "three")
+    say("main", f"trips {loop['trips']} ({loop['loop_trips']} in device "
+                f"loops, the rest each loop's first, eager trip), "
+                f"{loop['cond_launches']} condition-kernel launches")
+    if launches != loop["trips"]:
+        raise AssertionError(f"the main path made {launches} kernel "
+                             f"launches in {loop['trips']} trips: one a "
+                             "trip, no idle trip")
     say("main", f"bt_solve kernel launches during the main path: {launches}"
                 f"; by (variant, K, w, batch): "
                 f"{sorted(launches_by.items(), key=lambda kv: -kv[0][3])}")
@@ -2558,12 +2857,13 @@ def check_main(torch, out, launches, launches_by, programs):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--phases":
-        picked = sys.argv[2].split(",")
+    if sys.argv[1:] == ["loop"] or (len(sys.argv) == 3
+                                    and sys.argv[1] == "--phases"):
+        picked = sys.argv[-1].split(",")
         if not set(picked) <= set(PHASES):
             raise SystemExit(f"chip_smoke: phases are {', '.join(PHASES)}")
         main(tuple(p for p in PHASES if p in picked))
     elif len(sys.argv) == 1:
         main()
     else:
-        raise SystemExit("usage: chip_smoke.py [--phases a,b,...]")
+        raise SystemExit("usage: chip_smoke.py [--phases a,b,... | loop]")

@@ -219,12 +219,16 @@ def run_mpc(nlp, cfg, data: VGPData, steps: int = 20,
     penalty. Two numbers: the median of the re-solves timed one by one
     with a device sync each (``p50_ms``), and ``steps`` re-solves
     dispatched back to back with one sync (``pipelined_ms`` a step; None
-    when ``pipelined`` is off). The solver loop itself waits on the host
-    for each trip's stop flag (on a card a trip late, the trip a replay of
-    a captured graph), so the second saves only the last wait of each
-    solve. ``statuses``, ``iters`` and ``finite`` are those of the
-    one-by-one re-solves. The KKT route is ``cfg.kkt_solver``'s: under
-    "kernel" every iteration launches the kernel at a batch of one."""
+    when ``pipelined`` is off). On a card each re-solve's loop is one
+    graph launch with its stop test on the card and the loops' trip
+    counters are read only when a count is asked for, so the host
+    queues the next re-solve (its copies in, the launch, the result's
+    copies out) while the card runs this one: ``pipelined_ms`` is the
+    card's time a re-solve wherever that exceeds the host's.
+    ``ticks`` (their results), ``statuses``, ``iters`` and ``finite``
+    are those of the one-by-one re-solves. The KKT route is
+    ``cfg.kkt_solver``'s: under "kernel" every iteration launches the
+    kernel at a batch of one."""
     dev = data.x0.device
     res = al_sqp.solve(nlp, cfg, data)
     lam = (res.lam_def, res.lam_eq, res.mu)
@@ -235,12 +239,13 @@ def run_mpc(nlp, cfg, data: VGPData, steps: int = 20,
 
     resolve_at(0)  # first-use costs stay out of the timings
     _sync(dev)
-    lat, statuses, iters, finite = [], [], [], True
+    lat, ticks, statuses, iters, finite = [], [], [], [], True
     for i in range(steps):
         t0 = time.perf_counter()
         r = resolve_at(i)
         _sync(dev)
         lat.append(time.perf_counter() - t0)
+        ticks.append(r)
         statuses.append(int(r.status))
         iters.append(int(r.inner_iters))
         finite = finite and bool(torch.isfinite(r.z).all())
@@ -251,7 +256,8 @@ def run_mpc(nlp, cfg, data: VGPData, steps: int = 20,
             r = resolve_at(i)
         _sync(dev)
         pipelined_ms = (time.perf_counter() - t0) / steps * 1e3
-    return dict(cold=res, statuses=statuses, iters=iters, finite=finite,
+    return dict(cold=res, ticks=ticks, statuses=statuses, iters=iters,
+                finite=finite,
                 p50_ms=statistics.median(lat) * 1e3,
                 pipelined_ms=pipelined_ms)
 
@@ -338,8 +344,8 @@ def bench(B: int = 2048, nsteps: int = 50, iters: int = 5,
         mpc = run_mpc(nlp, cfg, single)
     log(f"p50 warm MPC re-solve latency: {mpc['p50_ms']:.2f} ms (a device "
         f"sync after each); {mpc['pipelined_ms']:.2f} ms/step with "
-        f"{len(mpc['statuses'])} dispatched back to back and one sync (the solver "
-        f"loop waits for each trip's stop flag either way); statuses "
+        f"{len(mpc['statuses'])} dispatched back to back and one sync (on "
+        f"a card each loop's stop test runs on the card); statuses "
         f"{mpc['statuses']}")
 
     return {

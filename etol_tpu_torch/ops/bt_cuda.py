@@ -86,12 +86,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: str = _SOURCE) -> str:
-    """Where the library built from ``source`` lives: keyed by the
-    source and flags."""
+    """Where the library built from ``source`` lives: named after the
+    source's file and keyed by its text and the flags."""
     with open(source, "rb") as fh:
         h = hashlib.sha256(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f"libbt_solve_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(_BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
 def compile_source(source: str = _SOURCE) -> tuple[str, str, float | None]:

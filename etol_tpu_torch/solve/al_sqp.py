@@ -17,9 +17,11 @@ stops changing exactly where its own JAX ``while_loop`` would stop
 (``inner_iters`` and the stage trip counts depend on this). One trip is
 a full Newton step and then ``cfg.chord_steps`` reuse steps against the
 stored KKT blocks; the freeze wraps the whole trip. On a card the trip
-is captured once as a CUDA graph and replayed, the counterpart of the
-JAX package's one traced ``while_loop`` (:mod:`.trip_graph`); on the
-CPU a Python ``while`` tests ``active.any()`` once per trip.
+is captured once as a CUDA graph and the loop is one graph launch, a
+while node around the trip whose stop test runs on the card, the
+counterpart of the JAX package's one traced ``while_loop``
+(:mod:`.trip_graph`); the staged solve is one launch too. On the CPU a
+Python ``while`` tests ``active.any()`` once per trip.
 
 The KKT solve. ``kkt_solver="kernel"`` launches the CUDA kernel
 (:mod:`..ops.bt_cuda`) for float32 problems with node widths up to 9,
@@ -43,6 +45,7 @@ products corrupt the Gauss-Newton blocks once rho is large.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -862,19 +865,24 @@ def _lm_update(cfg: SolverConfig, lm, fail, good, poor, cap_growth):
                     torch.where(poor, grow, lm)))
 
 
+def _exponents(cfg: SolverConfig, dtype, device):
+    """The line search's exponents: an explicit grid, or the first
+    ls_grid. Made from Python data, so a captured program makes them
+    once, outside its graph, as a buffer of its key."""
+    return torch.tensor(
+        tuple(cfg.ls_exponents) or _LS_EXPONENTS[
+            : max(min(cfg.ls_grid, len(_LS_EXPONENTS)), 1)],
+        dtype=dtype, device=device)
+
+
 def _start(F: _ALFuncs, cfg: SolverConfig, z0, lam0, rho_init=None):
     """The loop's first state (a dict of [B, ...] tensors, the keys of
-    ``_STATE``, and of ``_CHORD_STATE`` under ``cfg.chord_steps``) and the
-    line search's exponents, for the batch ``F`` holds."""
+    ``_STATE``, and of ``_CHORD_STATE`` under ``cfg.chord_steps``) for
+    the batch ``F`` holds. It reads nothing on the host."""
     B = F.lb.shape[0]
     dtype, dev = F.dtype, F.lb.device
     lam_def0, lam_eq0, mu0 = lam0
     Z0 = torch.clamp(z0.reshape(B, F.K, F.w), F.lb, F.ub)
-    # the line search's exponents: an explicit grid, or the first ls_grid
-    exps = torch.tensor(
-        tuple(cfg.ls_exponents) or _LS_EXPONENTS[
-            : max(min(cfg.ls_grid, len(_LS_EXPONENTS)), 1)],
-        dtype=dtype, device=dev)
 
     cd0, ce0, g0 = F.residuals(Z0)
 
@@ -902,7 +910,7 @@ def _start(F: _ALFuncs, cfg: SolverConfig, z0, lam0, rho_init=None):
                                 device=dev),
             dmp_st=full(0.0),
         )
-    return st, exps
+    return st
 
 
 def _active(cfg: SolverConfig, st: dict, max_total, agree=None):
@@ -948,11 +956,46 @@ def _finish(nlp: NLP, data: VGPData, st: dict) -> SolveResult:
     )
 
 
+def _batch_steps(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
+                 rho_init=None, box=None, kkt_solve=None, max_total=None):
+    """The batched solve as steps around its loop: a generator that
+    yields ``(F, cfg, st, max_total)`` once, where the loop runs from
+    the state ``st``, is sent the loop's final state, and returns the
+    :class:`SolveResult`. ``z0`` and ``lam0`` None start cold;
+    ``max_total`` (an int or a 0-dim tensor) defaults to the config's
+    budget. Between the yields it reads nothing on the host, so a card
+    captures each side of the loop (:mod:`.trip_graph`)."""
+    if z0 is None:
+        z0 = map_lanes(nlp.initial_guess, data)
+    if lam0 is None:
+        lam0 = init_multipliers(nlp, data)
+    if max_total is None:
+        max_total = cfg.max_total or cfg.max_outer * cfg.max_inner
+    F = _ALFuncs(nlp, cfg, data, box, kkt_solve)
+    st = _start(F, cfg, z0, lam0, rho_init)
+    st = yield F, cfg, st, max_total
+    return _finish(nlp, data, st)
+
+
+def _run_steps(steps, at_loop):
+    """Drive a generator of steps (:func:`_batch_steps`,
+    :func:`_staged_steps`): ``at_loop(F, cfg, st, max_total)`` runs each
+    loop it yields and returns the loop's final state. Returns what the
+    generator returns."""
+    sent = None
+    try:
+        while True:
+            sent = at_loop(*steps.send(sent))
+    except StopIteration as stop:
+        return stop.value
+
+
 def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
                  rho_init=None, box=None, kkt_solve=None,
                  agree=None) -> SolveResult:
     """The flattened AL-SQP over a batch; ``z0`` [B, nz], ``lam0`` a
-    (lam_def, lam_eq, mu) triple with lane axes, ``rho_init`` [B],
+    (lam_def, lam_eq, mu) triple with lane axes (each None for a cold
+    start), ``rho_init`` [B],
     ``box`` an optional (lo, hi) pair of [B, K, w] bounds intersected with
     the NLP's (``z0`` is clamped into the intersection), ``kkt_solve`` a
     KKT solver ``f(D [B,K,w,w], O [B,K-1,w,w], r [B,K,w]) -> x`` in place
@@ -961,15 +1004,14 @@ def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
     KKT solve is a collective, all of them must take the same trips).
 
     The loop runs where :func:`.trip_graph.loop` sends it: on a card, one
-    trip captured as a CUDA graph and replayed; on the CPU, and for a
-    collective ``agree``, the eager loop with one host sync a trip."""
+    graph launch, a while node around the captured trip with its stop
+    test on the card; on the CPU, and for a collective ``agree``, the
+    eager loop with one host sync a trip."""
     from . import trip_graph
 
-    F = _ALFuncs(nlp, cfg, data, box, kkt_solve)
-    st, exps = _start(F, cfg, z0, lam0, rho_init)
-    max_total = cfg.max_total or cfg.max_outer * cfg.max_inner
-    st = trip_graph.loop(F, cfg, st, exps, max_total, agree)
-    return _finish(nlp, data, st)
+    return _run_steps(
+        _batch_steps(nlp, cfg, data, z0, lam0, rho_init, box, kkt_solve),
+        functools.partial(trip_graph.loop, agree=agree))
 
 
 def init_multipliers(nlp: NLP, data: VGPData):
@@ -1024,10 +1066,6 @@ def solve_batched(
     """Solve a batch: every tensor of ``data`` has a leading lane axis.
     ``z0`` [B, nz], ``lam0`` (each [B, ...]) and ``rho0`` [B] warm-start
     the whole fleet."""
-    if z0 is None:
-        z0 = map_lanes(nlp.initial_guess, data)
-    if lam0 is None:
-        lam0 = init_multipliers(nlp, data)
     return _solve_batch(nlp, cfg, data, z0, lam0, rho0)
 
 
@@ -1224,6 +1262,45 @@ def solve_batched_rescue(
     return rescue_merge(res1, res2, idx)
 
 
+def _staged_steps(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, stages,
+                  lam0, rho0, max_total):
+    """The staged solve as steps around its loops (:func:`_run_steps`):
+    phase 1 over the whole batch under ``max_total`` (an int or a 0-dim
+    tensor), then for each ``(count, budget)`` stage the M = min(count,
+    B) worst lanes gathered and continued warm for ``budget``
+    iterations, and merged back. Returns the result and the trip counts
+    of phase 1 and of each stage (the most iterations any lane ran) as
+    0-dim tensors. Between the loops it reads nothing on the host: M is
+    static and the gathers and merges are tensor ops, as in the JAX
+    package's one jit."""
+    res = yield from _batch_steps(nlp, cfg, data, z0, lam0, rho0,
+                                  max_total=max_total)
+    stage_trips = [res.inner_iters.max()]
+    for count, budget in stages:
+        B = res.status.shape[0]
+        M = min(count, B)
+        ok = res.status == int(Status.SOLVED)
+        order = torch.argsort(ok.to(torch.int32), stable=True)
+        idx = order[:M]
+        sub = tree_map(lambda a: a[idx], data)
+        cfg_i = dataclasses.replace(cfg, max_total=budget)
+        lam_i = (res.lam_def[idx], res.lam_eq[idx], res.mu[idx])
+        res_i = yield from _batch_steps(nlp, cfg_i, sub, res.z[idx], lam_i,
+                                        res.rho[idx])
+        stage_trips.append(res_i.inner_iters.max())
+        v_old = torch.maximum(res.viol_eq[idx], res.viol_in[idx])
+        v_new = torch.maximum(res_i.viol_eq, res_i.viol_in)
+        ok_old = ok[idx]
+        ok_new = res_i.status == int(Status.SOLVED)
+        better = (ok_new & ~ok_old) | (~ok_old & (v_new < v_old))
+
+        def merge(a, b):
+            return a.index_copy(0, idx, _sel(better, b, a[idx]))
+
+        res = tree_map(merge, res, res_i)
+    return res, stage_trips
+
+
 def solve_batched_staged(
     nlp: NLP,
     cfg: SolverConfig,
@@ -1242,34 +1319,19 @@ def solve_batched_staged(
     penalty) for ``budget`` more iterations. Improved results scatter
     back; lanes that still fail keep an honest MAX_ITER.
 
+    On a card the whole solve is one program, as the JAX package's is one
+    jit (:func:`.trip_graph.staged`): one graph launch runs phase 1's
+    loop, each stage's gather, loop and merge, with every stop test on
+    the card. On the CPU it runs eagerly.
+
     ``return_stage_trips=True`` additionally returns the tuple of trip
     counts (the most Newton iterations any lane ran) of phase 1 and of
-    each stage.
+    each stage, read from the device once, at the end.
     """
-    res = solve_batched(nlp, cfg, data, z0, lam0, rho0)
-    stage_trips = [int(res.inner_iters.max())]
-    for count, budget in stages:
-        B = res.status.shape[0]
-        M = min(count, B)
-        ok = res.status == int(Status.SOLVED)
-        order = torch.argsort(ok.to(torch.int32), stable=True)
-        idx = order[:M]
-        sub = tree_map(lambda a: a[idx], data)
-        cfg_i = dataclasses.replace(cfg, max_total=budget)
-        lam_i = (res.lam_def[idx], res.lam_eq[idx], res.mu[idx])
-        res_i = solve_batched(nlp, cfg_i, sub, res.z[idx], lam_i,
-                              res.rho[idx])
-        stage_trips.append(int(res_i.inner_iters.max()))
-        v_old = torch.maximum(res.viol_eq[idx], res.viol_in[idx])
-        v_new = torch.maximum(res_i.viol_eq, res_i.viol_in)
-        ok_old = ok[idx]
-        ok_new = res_i.status == int(Status.SOLVED)
-        better = (ok_new & ~ok_old) | (~ok_old & (v_new < v_old))
+    from . import trip_graph
 
-        def merge(a, b):
-            return a.index_copy(0, idx, _sel(better, b, a[idx]))
-
-        res = tree_map(merge, res, res_i)
+    res, stage_trips = trip_graph.staged(nlp, cfg, data, z0, stages, lam0,
+                                         rho0)
     if return_stage_trips:
-        return res, tuple(stage_trips)
+        return res, tuple(torch.stack(stage_trips).tolist())
     return res

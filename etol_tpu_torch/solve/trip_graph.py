@@ -1,21 +1,23 @@
-"""The solver loop and the seeds and planners, each captured as a CUDA
-graph and replayed.
+"""The solver loop, the staged solve, and the seeds and planners, each
+run on a CUDA card as captured graphs with no host decision inside.
 
 Counterpart of how the JAX package runs its solve
 (``etol_tpu/solve/al_sqp.py``: "Whole solve is one traced program:
 fixed-shape ``lax.while_loop``s ... so one ``jit`` serves every problem
 instance of the same Dims", and a warm MPC re-solve "re-invokes with
-zero retrace"). Here the traced program is one trip of the loop
-(:func:`.al_sqp._trip`: the full step, the chord steps and the freeze,
-then the loop condition), captured once per key as a
-``torch.cuda.CUDAGraph``. A replay dispatches the whole trip, the KKT
-kernel's launch included, with one host call; the host only decides when
-to stop.
+zero retrace"). One trip of the loop (:func:`.al_sqp._trip`: the full
+step, the chord steps and the freeze, then the loop condition) is
+captured once per key as a ``torch.cuda.CUDAGraph``, and the loop runs
+as one graph launch: a while node (``ops/graph_loop.py``, built from
+``csrc/graph_loop.cu``) whose body is the captured trip followed by a
+one-thread condition kernel that reads the trip's flag on the card, as
+``lax.while_loop`` runs its cond on the device. The host reads nothing
+while the loop runs and no trip runs past the stop.
 
 Routes, decided by :func:`loop` from its arguments before anything
 launches:
 
-* a batch on a CUDA device: static buffers and the captured trip;
+* a batch on a CUDA device: static buffers and the device loop;
 * a batch on the CPU: the eager loop, the plain version (the same
   ``_trip``), which reads ``active.any()`` on the host once a trip;
 * a collective ``agree`` (the horizon-sharded solve over a
@@ -23,16 +25,28 @@ launches:
   ``torch.distributed`` reduction, staged through the host under gloo):
   the eager loop, on a card too.
 
+:func:`override` forces one of the routes "eager", "static" and
+"replay". The last is the host-driven loop of static buffers that came
+before the device loop, kept so that a run can time the two side by
+side: each trip is a replay of the captured graph, and the host reads
+the stop flag ``lag`` trips late (``LAG`` = 1 by default) from pinned
+memory, so ``lag`` frozen trips run past the stop
+(``COUNTS["idle_trips"]``; they change no leaf, so the results are
+bitwise the eager loop's). On the CPU, "static" runs the same work in
+the same order without capturing it, the loop as the host's ``while``
+on the same flag: what the CPU tests run.
+
 Static buffers. An entry holds, each in a buffer of its own, the loop's
 state dict, the problem data (the leaves of ``VGPData``, or of a
 ``SideData``), the tensors ``_ALFuncs`` derives from them (the bounds,
 with a box where one is given, the scales, the track centres), the line
-search's exponents, ``max_total`` as a 0-dim tensor, the lane mask and a
-0-dim flag (any lane active). A trip reads them and overwrites the
-state, the mask and the flag in place. A call copies its data, its first
-state and its budget in and its result out, so the calls of one key
-replay one graph: a cold solve's, its warm re-solve's, every stage of
-the staged compaction at that batch size, every MPC tick's.
+search's exponents, ``max_total`` as a 0-dim tensor, the lane mask, a
+0-dim flag (any lane active) and the loop's two device counters (the
+condition kernel's launches and the trips). A trip reads them and
+overwrites the state, the mask and the flag in place. A call copies its
+data, its first state and its budget in and its result out, so the calls
+of one key run one graph: a cold solve's, its warm re-solve's, every MPC
+tick's.
 
 The key: the NLP, the config with ``max_total`` taken out (it is a
 buffer), the batch size, dtype and device, the KKT route, the
@@ -44,27 +58,30 @@ bounds, [B, K, w] with or without one, and they are copied in.
 First use of a key: the trip runs eagerly once on a side stream (that
 builds the kernel and sets its shared-memory attribute, is torch's
 warm-up before a capture, and is a real trip of the solve), then one
-trip is captured. A capture or a replay that fails raises: nothing falls
-back to the eager loop.
+trip is captured and the loop's graph is built. A capture, a build or a
+launch that fails raises: nothing falls back to another route.
 
-The stop test. After each replay the flag is copied into pinned host
-memory without blocking and an event is recorded; the host then waits
-for the event of the replay ``LAG`` trips back and reads that flag. The
-next trip is always queued while the host waits, so the device never
-waits for the host's decision, and ``LAG`` trips past the last one run
-with every lane frozen: they change no leaf, so every result is bitwise
-the eager loop's. The launches they make are counted (``bt_cuda``'s and
-``cyclic_reduction``'s counters add a graph's recorded launches at each
-replay), and ``COUNTS["idle_trips"]`` says how many there were. Why
-``LAG`` is 1: ``chip_smoke.py``'s graph phase times lag 1 against lag 0
-(a wait on each trip before the next is queued) in one call. On an H100
-(700 W), uas_2d N=50 at B=2048: 7.83 against 8.60 ms a trip, and 8.12
-against 8.29 in a second call, the card's own trip 7.39 ms; the wait
-leaves the card idle while the host wakes and queues the next replay.
-At B=1 (the MPC re-solve) the two tie (p50 32.37 against 32.36 ms): the
-idle trip costs what the waits save. A fixed block of trips between
-reads would run up to a block of idle trips at every stop, where lag 1
-runs one.
+Counts. The trips of a device loop are known on the card, in the loop's
+two device counters. A solve never waits on them: :func:`settle` reads
+the counters of every loop launched since the last read (one read for
+all) and adds what they gained to ``COUNTS["trips"]``, to the launch
+tallies (``bt_cuda``'s and ``cyclic_reduction``'s counters add a graph's
+recorded launches for each trip) and to ``graph_loop``'s counts. Call it
+before reading a count; the cache calls it before it drops an entry.
+
+The staged solve. The JAX package jits ``solve_batched_staged`` whole:
+phase 1, every compaction stage and the gathers and merges between them
+are one program. :func:`staged` runs it so on the static route, as a
+:func:`program` whose body is the staged steps
+(:func:`.al_sqp._staged_steps`) with each loop through :func:`loop`.
+Inside a capture :func:`loop` captures the copy into its entry's buffers
+and then adds the entry's device loop to the graph being captured
+(``graph_loop.insert``), so the captured program is one graph: the
+prologue, phase 1's loop at B, each stage's gather and ``_start`` and
+its loop at M = min(count, B), the merges. The program holds the entries
+of its loops, so the cache never frees a trip that its graph runs; while
+a program is built, the cache drops nothing. The stage trips come back as
+0-dim tensors.
 
 Programs. The JAX package jits its seeds and planners too
 (``etol_tpu/solve/shooting.py`` ``plan``, ``planners.py`` ``_plan_cem``
@@ -80,15 +97,21 @@ tree of arguments, each tensor by its shape and dtype and every other
 leaf (the dynamics, sizes, names, Python floats) by its value, with the
 device. On the CPU the body runs eagerly on the caller's tensors.
 
-The cache, the trips' keys and the programs' together, holds at most
-MAX_ENTRIES keys and drops the least recently used first, also while
-the entries' memory passes POOL_SHARE of the device's. An entry's memory
-is its static buffers (state and data of B lanes, a program's
-arguments) and its graph's private pool, which keeps every tensor the
-captured work makes reserved for the replays: for a trip the line
-search's B·|grid| candidates and their residuals, the assembly's
-intermediates, the Hessian blocks, the KKT solve's scratch.
-``chip_smoke.py`` prints the pool bytes of each phase's keys.
+A program's first use runs the body eagerly on its buffers (its result
+is the call's; a staged solve's loops run there on their entries' device
+loops, each entry's first use included), then captures it; later calls
+copy in, replay and clone out.
+
+The cache, the loops' and the programs' keys together, holds at most
+MAX_ENTRIES keys and drops the least recently used first, also while the
+entries' memory passes POOL_SHARE of the device's. An entry's memory is
+its static buffers (state and data of B lanes, a program's arguments)
+and its graphs' private pools, which keep every tensor the captured work
+makes reserved for the launches: for a trip the line search's B·|grid|
+candidates and their residuals, the assembly's intermediates, the
+Hessian blocks, the KKT solve's scratch; a program's memory counts the
+loops it holds. ``chip_smoke.py`` prints the pool bytes of each phase's
+keys.
 """
 from __future__ import annotations
 
@@ -102,39 +125,49 @@ import torch
 
 from ..core.problem import (tree_flatten, tree_flatten_with_paths,
                             tree_map, tree_unflatten)
-from ..ops import bt_cuda, cyclic_reduction
-from .al_sqp import SolverConfig, _active, _ALFuncs, _trip
+from ..ops import bt_cuda, cyclic_reduction, graph_loop
+from .al_sqp import (SolverConfig, _active, _ALFuncs, _exponents,
+                     _run_steps, _staged_steps, _trip)
 
-#: replays between a trip and the host's read of its flag
+#: the routes :func:`override` forces
+ROUTES = ("eager", "static", "replay")
+#: on the replay route, replays between a trip and the host's read of
+#: its flag
 LAG = 1
 #: keys the cache holds at most
-MAX_ENTRIES = 8
+MAX_ENTRIES = 16
 #: share of a device's memory the cached entries may hold
 POOL_SHARE = 0.25
 #: what runs have done in this process, for a run to read: graphs
 #: captured and the seconds that took, trips run on static buffers (the
 #: first, eager trip of a new key included) and of them the frozen ones
-#: past the stop, trips of the eager loop, and calls of a program on
-#: static buffers
+#: past the stop on the replay route, trips of the eager loop, calls of
+#: a program on static buffers, and launches of graphs that hold a device
+#: loop (a solve's loop, a staged solve's program)
 COUNTS = dict(captures=0, capture_s=0.0, trips=0, idle_trips=0,
-              eager_trips=0, programs=0)
+              eager_trips=0, programs=0, loop_graphs=0)
 
 _CACHE: "collections.OrderedDict[tuple, _Captured]" = (
     collections.OrderedDict())
 _OVERRIDE = {}
+# the entries whose device loops ran since their counters were last read
+_UNREAD: "dict[_Entry, None]" = {}
+# while a program runs its body for the first time or is captured: the
+# entries of the loops it reaches
+_PARTS = None
 
 
 @contextlib.contextmanager
 def override(route: str | None = None, lag: int | None = None):
-    """Force, for the solves and programs inside, the route ("eager" or
-    "static") and the loop's stop-test lag: for the card's comparison of
-    the graph with the eager route, and for the CPU tests of the static
-    path, which runs the trip or the body the graph captures without
-    capturing it."""
-    if route not in (None, "eager", "static"):
-        raise ValueError(f"route must be 'eager' or 'static', got {route!r}")
-    if lag is not None and lag < 0:
-        raise ValueError(f"lag must be >= 0, got {lag}")
+    """Force, for the solves and programs inside, the route: "eager",
+    "static" or "replay" (with its stop-test ``lag``); see the module's
+    docstring. For the card's comparison of the routes and for the CPU
+    tests of the static path."""
+    if route not in (None,) + ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if lag is not None and (route != "replay" or lag < 0):
+        raise ValueError(f"a lag (>= 0) is the replay route's, got {lag} "
+                         f"on {route!r}")
     saved = dict(_OVERRIDE)
     _OVERRIDE.update(route=route, lag=lag)
     try:
@@ -144,35 +177,98 @@ def override(route: str | None = None, lag: int | None = None):
         _OVERRIDE.update(saved)
 
 
+def settle() -> None:
+    """Read the device counters of the loops launched since the last read
+    and add what they gained to COUNTS["trips"], the launch tallies and
+    ``graph_loop``'s counts: before a count is read."""
+    global _UNREAD
+    entries, _UNREAD = list(_UNREAD), {}
+    for e in entries:
+        launches, trips = e.counts.tolist()
+        gained = launches - e.read[0], trips - e.read[1]
+        e.read = (launches, trips)
+        COUNTS["trips"] += gained[1]
+        e._replayed(gained[1])
+        graph_loop.counted(*gained)
+
+
+def _held() -> dict:
+    """The cached entries and the loops' entries their programs hold,
+    each once."""
+    return dict.fromkeys(p for e in _CACHE.values() for p in (e, *e.parts))
+
+
 def pool_bytes() -> int:
     """Bytes the cached graphs' pools reserved when they were captured."""
-    return sum(e.pool_bytes for e in _CACHE.values())
+    return sum(e.pool_bytes for e in _held())
 
 
 def static_bytes() -> int:
     """Bytes of the cached entries' static buffers."""
-    return sum(e.static_bytes for e in _CACHE.values())
+    return sum(e.static_bytes for e in _held())
 
 
-def loop(F: _ALFuncs, cfg: SolverConfig, st: dict, exps, max_total: int,
+def loop(F: _ALFuncs, cfg: SolverConfig, st: dict, max_total,
          agree=None) -> dict:
-    """Run the loop from the state ``st`` to its end and return the final
-    state: on static buffers, with the trip captured on a CUDA device,
-    unless the batch is on the CPU, ``agree`` is a collective or the
-    batch has no lanes (it runs no trip)."""
+    """Run the loop from the state ``st`` under ``max_total`` (an int or
+    a 0-dim tensor) to its end and return the final state: on static
+    buffers, on a CUDA device as the device loop, unless the batch is on
+    the CPU, ``agree`` is a collective or the batch has no lanes (it
+    runs no trip)."""
     route = route_of(F.lb.device, agree is None and F.lb.shape[0] > 0)
     if route == "eager":
-        return _eager(F, cfg, st, exps, max_total, agree)
+        return _eager(F, cfg, st, max_total, agree)
     if agree is not None:
         raise ValueError("a collective lane mask (agree) runs on the eager "
                          "loop; it cannot be captured")
-    lag = _OVERRIDE.get("lag")
-    return _static(F, cfg, st, exps, max_total, LAG if lag is None else lag)
+    entry = _lookup(_key(F, cfg), lambda: _Entry(F, cfg, st))
+    if _PARTS is not None:
+        _PARTS.append(entry)
+    entry.load(F, st, max_total)
+    if route == "replay":
+        lag = _OVERRIDE.get("lag")
+        entry.run(LAG if lag is None else lag)
+    else:
+        entry.loop()
+    out = {k: v.clone() for k, v in entry.st.items()}
+    _evict(F.lb.device)
+    return out
+
+
+def staged(nlp, cfg: SolverConfig, data, z0, stages, lam0, rho0):
+    """:func:`.al_sqp.solve_batched_staged`'s run: (the result, the stage
+    trips as 0-dim tensors). On the static route one :func:`program` of
+    the staged steps, its loops captured into it; on the others the steps
+    with each loop through :func:`loop`."""
+    max_total = cfg.max_total or cfg.max_outer * cfg.max_inner
+    body = _StagedSolve(nlp, dataclasses.replace(cfg, max_total=0),
+                        tuple(tuple(s) for s in stages))
+    device = data.x0.device
+    if route_of(device, data.x0.shape[0] > 0) != "static":
+        return body(data, z0, lam0, rho0, max_total)
+    return program(body, data, z0, lam0, rho0,
+                   torch.full((), max_total, dtype=torch.int64,
+                              device=device))
+
+
+@dataclasses.dataclass(frozen=True)
+class _StagedSolve:
+    """The staged solve's body for :func:`program`: the NLP, the config
+    (its ``max_total`` the call's argument) and the stages are its key's."""
+
+    nlp: object
+    cfg: SolverConfig
+    stages: tuple
+
+    def __call__(self, data, z0, lam0, rho0, max_total):
+        return _run_steps(_staged_steps(self.nlp, self.cfg, data, z0,
+                                        self.stages, lam0, rho0, max_total),
+                          loop)
 
 
 def route_of(device, capturable: bool = True) -> str:
     """The route of work on ``device``: the overridden one, else
-    "static" (static buffers and a graph) on a CUDA device where the work
+    "static" (static buffers and graphs) on a CUDA device where the work
     can be captured, else "eager"."""
     route = _OVERRIDE.get("route")
     if route is None:
@@ -189,20 +285,27 @@ def program(body, *args, **kwargs):
     leaves; the body must read nothing on the host, and the result is a
     tree of tensors, cloned out of the buffers."""
     tree = (args, kwargs)
-    leaves = tree_flatten_with_paths(tree)
-    device = next(a.device for _, a in leaves if isinstance(a, torch.Tensor))
+    device = next(a.device for a in tree_flatten(tree)
+                  if isinstance(a, torch.Tensor))
     if route_of(device) == "eager":
         return body(*args, **kwargs)
-    key = (body, str(device), tuple(
-        (path, tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
-        else (path, type(a), a) for path, a in leaves))
+    key = (body, str(device), _spec(tree))
     entry = _lookup(key, lambda: _Program(body, tree))
     out = entry.run(tree)
     _evict(device)
     return out
 
 
-def _eager(F, cfg, st, exps, max_total, agree):
+def _spec(tree) -> tuple:
+    """A tree's part of a key: each tensor leaf by its shape and dtype,
+    every other leaf by its value."""
+    return tuple(
+        (path, tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
+        else (path, type(a), a) for path, a in tree_flatten_with_paths(tree))
+
+
+def _eager(F, cfg, st, max_total, agree):
+    exps = _exponents(cfg, F.dtype, F.lb.device)
     active = _active(cfg, st, max_total, agree)
     while bool(active.any()):  # one host sync per trip
         st = _trip(F, cfg, st, exps, active)
@@ -222,14 +325,6 @@ def _key(F: _ALFuncs, cfg: SolverConfig) -> tuple:
     )
 
 
-def _static(F, cfg, st, exps, max_total, lag):
-    entry = _lookup(_key(F, cfg), lambda: _Entry(F, cfg, st, exps))
-    entry.load(F, st, max_total)
-    entry.run(lag)
-    _evict(F.lb.device)
-    return {k: v.clone() for k, v in entry.st.items()}
-
-
 def _lookup(key, make):
     """The cached entry of ``key`` (made by ``make()`` on its first use),
     now the most recently used."""
@@ -241,10 +336,13 @@ def _lookup(key, make):
 
 
 def _evict(device) -> None:
+    if _PARTS is not None:  # a program is being built: its loops stay
+        return
     limit = (POOL_SHARE * torch.cuda.get_device_properties(device)
              .total_memory if device.type == "cuda" else float("inf"))
     while len(_CACHE) > MAX_ENTRIES or (
             len(_CACHE) > 1 and pool_bytes() + static_bytes() > limit):
+        settle()
         _CACHE.popitem(last=False)
 
 
@@ -260,23 +358,15 @@ class _Captured:
     tally = cr_tally = None
     pool_bytes = 0
     static_bytes = 0
+    #: the entries of the loops a program's graph runs
+    parts = ()
 
-    def _warm(self) -> None:
-        """One eager :meth:`step` on a side stream: it builds what the
-        step launches (the KKT kernel, its shared-memory attribute), and
-        is torch's warm-up before a capture."""
-        here = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            self.step()
-        here.wait_stream(side)
-
-    def _capture(self):
+    def _capture(self, keep_graph: bool = False):
         """Capture one :meth:`step` and return what it returned, the
-        graph's output tensors."""
+        graph's output tensors; ``keep_graph`` keeps the graph itself,
+        for a loop's while node to clone."""
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         with bt_cuda.recording() as tally, \
                 cyclic_reduction.recording() as cr_tally:
             with torch.cuda.graph(graph):
@@ -317,32 +407,51 @@ class _Program(_Captured):
         """The body on the buffers: what the graph captures."""
         return self.body(*self.args, **self.kwargs)
 
+    def _collect(self, run):
+        """``run()``, keeping the entries of the loops it reaches as
+        ``parts`` (the cache drops nothing meanwhile)."""
+        global _PARTS
+        saved, _PARTS = _PARTS, []
+        try:
+            out = run()
+            self.parts = tuple(dict.fromkeys(_PARTS))
+        finally:
+            _PARTS = saved
+        return out
+
     def run(self, tree):
         """Copy a call's tensors in, run the body (on a CUDA device the
-        graph, captured on the first use) and return its result cloned
-        out of the buffers."""
+        graph, captured after the key's first, eager run) and return its
+        result cloned out of the buffers."""
         for b, a in zip(self.buffers, (a for a in tree_flatten(tree)
                                        if isinstance(a, torch.Tensor))):
             b.copy_(a)
         COUNTS["programs"] += 1
         dev = self.buffers[0].device
         if dev.type != "cuda":
-            out = self.step()
+            out = self._collect(self.step)
+        elif self.graph is None:
+            with torch.cuda.device(dev):
+                out = self._collect(self.step)
+                self.out = self._collect(self._capture)
         else:
             with torch.cuda.device(dev):
-                if self.graph is None:
-                    self._warm()
-                    self.out = self._capture()
                 self.graph.replay()
             self._replayed(1)
+            if self.parts:
+                COUNTS["loop_graphs"] += 1
+                _UNREAD.update(dict.fromkeys(self.parts))
             out = self.out
         return tree_unflatten(out, [t.clone() for t in tree_flatten(out)])
 
 
 class _Entry(_Captured):
-    """One loop key's static buffers and, on a CUDA device, its graph."""
+    """One loop key's static buffers and, on a CUDA device, its trip's
+    graph and the loop's graph around it."""
 
-    def __init__(self, F: _ALFuncs, cfg: SolverConfig, st: dict, exps):
+    looped = None
+
+    def __init__(self, F: _ALFuncs, cfg: SolverConfig, st: dict):
         self.cfg = cfg
         # F's other fields (the NLP, the route, kkt_solve, the sizes) are
         # the key's; its tensors and its data become buffers
@@ -352,12 +461,16 @@ class _Entry(_Captured):
             if isinstance(t, torch.Tensor):
                 setattr(self.F, name, _buffer(t))
         self.st = {k: _buffer(v) for k, v in st.items()}
-        self.exps = _buffer(exps)
-        dev = exps.device
+        dev = F.lb.device
+        self.exps = _exponents(cfg, F.dtype, dev)
         self.max_total = torch.zeros((), dtype=torch.int64, device=dev)
         self.active = torch.zeros((F.lb.shape[0],), dtype=torch.bool,
                                   device=dev)
         self.flag = torch.zeros((), dtype=torch.bool, device=dev)
+        # the device loop's counters (the condition kernel's launches,
+        # the trips) and their values at the last read
+        self.counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.read = (0, 0)
         self.static_bytes = _nbytes(self._tensors())
 
     def _tensors(self):
@@ -365,11 +478,13 @@ class _Entry(_Captured):
         yield from (t for t in vars(self.F).values()
                     if isinstance(t, torch.Tensor))
         yield from self.st.values()
-        yield from (self.exps, self.max_total, self.active, self.flag)
+        yield from (self.exps, self.max_total, self.active, self.flag,
+                    self.counts)
 
-    def load(self, F: _ALFuncs, st: dict, max_total: int) -> None:
+    def load(self, F: _ALFuncs, st: dict, max_total) -> None:
         """Copy a call's data, derived tensors, first state and budget
-        in."""
+        (an int or a 0-dim tensor) in. It reads nothing on the host, so
+        a staged solve's glue captures it."""
         for b, a in zip(tree_flatten(self.F.data), tree_flatten(F.data)):
             b.copy_(a)
         for name, b in vars(self.F).items():
@@ -377,7 +492,10 @@ class _Entry(_Captured):
                 b.copy_(getattr(F, name))
         for k, b in self.st.items():
             b.copy_(st[k])
-        self.max_total.fill_(max_total)
+        if isinstance(max_total, torch.Tensor):
+            self.max_total.copy_(max_total)
+        else:
+            self.max_total.fill_(max_total)
         self._mark()
 
     def _mark(self) -> None:
@@ -393,20 +511,63 @@ class _Entry(_Captured):
             b.copy_(new[k])
         self._mark()
 
+    def _warm(self) -> None:
+        """One eager trip on a side stream: it builds what the trip
+        launches (the KKT kernel, its shared-memory attribute), and is
+        torch's warm-up before a capture."""
+        here = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            self.step()
+        here.wait_stream(side)
+
+    def _first_use(self) -> None:
+        """The first trip, eager (a real trip of the solve), then its
+        capture."""
+        self._warm()
+        COUNTS["trips"] += 1
+        self._capture(keep_graph=True)
+
+    def loop(self) -> None:
+        """Trips while the flag is set, tested before the first: on a
+        CUDA device one launch of the loop's graph (its counters are read
+        by :func:`settle`), or inside a capture the loop added to it; on
+        the CPU the host's ``while``."""
+        dev = self.flag.device
+        if dev.type != "cuda":
+            COUNTS["trips"] += graph_loop.plain(self.step, self.flag)
+            return
+        with torch.cuda.device(dev):
+            if torch.cuda.is_current_stream_capturing():
+                if self.graph is None:
+                    raise RuntimeError("a loop's first use runs before a "
+                                       "capture that holds it")
+                graph_loop.insert(self.graph.raw_cuda_graph(), self.flag,
+                                  self.counts)
+                return
+            if self.graph is None:
+                self._first_use()
+            if self.looped is None:
+                self.looped = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.looped):
+                    graph_loop.insert(self.graph.raw_cuda_graph(),
+                                      self.flag, self.counts)
+            self.looped.replay()
+        COUNTS["loop_graphs"] += 1
+        _UNREAD[self] = None
+
     def run(self, lag: int) -> None:
-        """Trips until the flag read ``lag`` trips late is False; on a
-        CUDA device the first use captures the trip and every later trip
-        is a replay."""
+        """The replay route: trips until the flag read ``lag`` trips late
+        is False; on a CUDA device every trip after a key's first is a
+        replay of its graph."""
         dev = self.flag.device
         if dev.type != "cuda":
             self._drive(self.step, lag)
             return
         with torch.cuda.device(dev):
             if self.graph is None:
-                # the first trip, eager: a real trip of the solve
-                self._warm()
-                COUNTS["trips"] += 1
-                self._capture()
+                self._first_use()
                 if not bool(self.flag):  # one read, on a key's first use
                     return
             n = self._drive(self.graph.replay, lag)

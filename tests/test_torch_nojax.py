@@ -49,7 +49,7 @@ MODULES = [
     "io/__init__", "io/checkpoint", "io/lp_export", "io/lp_io",
     "models/__init__", "models/dynamics", "models/fleet", "models/problems",
     "models/tuned",
-    "ops/__init__", "ops/bt_cuda", "ops/cyclic_reduction",
+    "ops/__init__", "ops/bt_cuda", "ops/cyclic_reduction", "ops/graph_loop",
     "parallel/__init__", "parallel/axis", "parallel/distributed",
     "parallel/dryrun", "parallel/horizon", "parallel/kkt", "parallel/mesh",
     "parallel/solve_sharded",

@@ -2,14 +2,18 @@
 the CPU.
 
 A card captures the trip that ``trip_graph._Entry.step`` runs on its
-static buffers and replays it; here the same static path runs the step
-itself, without a capture (``trip_graph.override("static")``). Held:
+static buffers and runs the loop as one graph launch, its stop test on
+the card (or, on the replay route, replays the trip and reads the flag
+on the host); here the same static path runs the step itself, without a
+capture (``trip_graph.override("static")``, and ``"replay"``). Held:
 
-* the stop test read ``lag`` trips late gives bitwise the per-trip
-  loop's z, statuses, iterations, multipliers and penalties, with
-  exactly ``lag`` frozen trips past the stop, on uas_2d, the canonical
-  OCP, chord steps, a Levenberg and a line-search variant, a side-branch
-  box over ``SideData`` and the horizon-sharded SPIKE solve;
+* the static route's loop (the host's ``while`` on the trip's flag here)
+  gives bitwise the per-trip loop's z, statuses, iterations, multipliers
+  and penalties in exactly its trips, with no idle trip, and the replay
+  route's stop test read ``lag`` trips late gives the same with exactly
+  ``lag`` frozen trips past the stop, on uas_2d, the canonical OCP,
+  chord steps, a Levenberg and a line-search variant, a side-branch box
+  over ``SideData`` and the horizon-sharded SPIKE solve;
 * one trip reads nothing on the host: no ``.item()`` or ``bool()`` of a
   tensor, no ``nonzero`` (a boolean mask), no tensor made from Python
   data, no copy to the CPU, under either KKT route;
@@ -146,13 +150,26 @@ def test_lagged_stop_is_the_per_trip_loop(case, lag):
     run, ref, trips = _eager(case)
     assert trips > 0
     before = dict(trip_graph.COUNTS)
-    with trip_graph.override("static", lag):
+    with trip_graph.override("replay", lag):
         res = run()
     for f in FIELDS:
         assert torch.equal(getattr(res, f), getattr(ref, f)), f
     # exactly lag frozen trips past the stop
     assert trip_graph.COUNTS["idle_trips"] - before["idle_trips"] == lag
     assert trip_graph.COUNTS["trips"] - before["trips"] == trips + lag
+    assert trip_graph.COUNTS["eager_trips"] == before["eager_trips"]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_device_loop_is_the_per_trip_loop(case):
+    run, ref, trips = _eager(case)
+    before = dict(trip_graph.COUNTS)
+    with trip_graph.override("static"):
+        res = run()
+    for f in FIELDS:
+        assert torch.equal(getattr(res, f), getattr(ref, f)), f
+    assert trip_graph.COUNTS["trips"] - before["trips"] == trips
+    assert trip_graph.COUNTS["idle_trips"] == before["idle_trips"]
     assert trip_graph.COUNTS["eager_trips"] == before["eager_trips"]
 
 
@@ -250,14 +267,14 @@ def test_loop_routes_from_its_arguments():
     cfg = ttuned.tuned_config("uas_2d", batch=4)[0]
     F = tal._ALFuncs(nlp, cfg, data)
     z0 = tal.map_lanes(nlp.initial_guess, data)
-    st, exps = tal._start(F, cfg, z0, tal.init_multipliers(nlp, data))
+    st = tal._start(F, cfg, z0, tal.init_multipliers(nlp, data))
     before = dict(trip_graph.COUNTS)
-    out = trip_graph.loop(F, cfg, st, exps, 3, agree=lambda a: a)
+    out = trip_graph.loop(F, cfg, st, 3, agree=lambda a: a)
     assert trip_graph.COUNTS["eager_trips"] - before["eager_trips"] == 3
     assert trip_graph.COUNTS["trips"] == before["trips"]
     assert int(out["tot"].max()) == 3
     with trip_graph.override("static"), pytest.raises(ValueError):
-        trip_graph.loop(F, cfg, st, exps, 3, agree=lambda a: a)
+        trip_graph.loop(F, cfg, st, 3, agree=lambda a: a)
     assert trip_graph._key(F, cfg) == trip_graph._key(
         F, dataclasses.replace(cfg, max_total=7))
     assert trip_graph._key(F, cfg) != trip_graph._key(
