@@ -55,11 +55,17 @@ result line:
              bench's seeds), (ii) the whole staged cold solve at B=2048
              with the bench's stages (one captured program: phase 1, each
              stage's gather and loop, the merges) and (iii) 20 MPC ticks
-             at B=1 (``run_mpc``: p50 and pipelined ms). Every device-loop
-             result bitwise the eager route's (the MPC's cold solve and
-             every tick), the replays' within GRAPH_TOL, one launch of the
-             kernel a trip, no idle trip, one graph launch a solve and
-             captures on a key's first use only; each side's trips (the
+             at B=1 (``run_mpc``: p50 and pipelined ms). On the card each
+             of these solves is one program (``trip_graph.run``: the
+             prologue, the loops' while nodes and the result in one
+             graph), so the device-loop sides are the program route: one
+             program call and one graph launch a solve (the MPC's cold
+             solve and its ticks two programs holding one loop), the
+             card's own ms a tick (the tick program replayed). Every
+             device-loop result bitwise the eager route's (the MPC's cold
+             solve and every tick), the replays' within GRAPH_TOL, one
+             launch of the kernel a trip, no idle trip, and captures on a
+             key's first use only; each side's trips (the
              device counter's), launches,
              idle trips, ms a trip, the card's own trip, busy share,
              graph launches, captures, capture seconds and pool bytes;
@@ -71,6 +77,18 @@ result line:
              buffers and in device loops, graph launches, eager trips and
              program calls; an idle trip outside this phase fails the
              run;
+4d. programs — the reference's other jitted solves as one program a
+             call: the facade's cold ``solve_batch`` at B=2048 with a
+             rescue of 512 lanes (``solve_batched_rescue``: phase 1, the
+             gather, the per-lane seeds, the flat multistart batch of 2048
+             starts and the merge in one graph launch) on its key's first
+             use and twice after (one program call and one graph launch
+             each, bitwise the first use; wall and the card's own ms, pool
+             bytes), the same at B=256 with 64 rescued lanes against the
+             eager route (bitwise), and ``solve_multistart`` on both
+             shipped problems eager, on its first use and replayed
+             (bitwise, one launch); the exact waves (one program call and
+             one graph launch a wave) are held in the exact phase;
 5. a/b     — B=64, N=50 cold solves with the kernel and with the plain
              "scan" KKT path, both on the card;
 6. cr      — cyclic reduction (plain torch ops, no kernel of its own)
@@ -202,6 +220,12 @@ FACADE_B, FORCED_B, FORCED_LANES = 2048, 64, 8
 RESCUE_LANES = FACADE_B // 4
 FACADE_SHAPES = ((33, 4, 1), (33, 4, 8), (33, 4, FACADE_B),
                  (33, 4, FACADE_B // 2), (17, 6, 8))
+# the programs phase holds the rescue bitwise against the eager route at
+# PROGRAM_B lanes with PROGRAM_RESCUE rescued (the eager route at the
+# facade's 2048 lanes takes ~500 host-synced trips); both phases launch at
+# (33, 4, PROGRAM_B)
+PROGRAM_B, PROGRAM_RESCUE = 256, 64
+PROGRAM_SHAPES = ((33, 4, PROGRAM_B),)
 FORCED_SHAPES = ((33, 4, FORCED_B), (33, 4, FORCED_LANES * 4))
 B1_SHAPE = (51, 5, 1)
 # the exact path: a wave of EXACT_WAVE nodes is one batched solve, so
@@ -341,9 +365,9 @@ MPC_STEPS, MPC_CR_STEPS = 10, 5
 # phase 9, fw100's warm A/B: the starts move by this much (km; the ladder
 # scatters them within 0.05), and a re-solve gets this many iterations
 WARM_DRIFT, WARM_BUDGET = 0.005, 60
-PHASES = ("kernel", "main", "graph", "loop", "a/b", "cr", "mpc", "bench",
-          "ladder", "facade", "exact", "planners", "fleet", "parallel",
-          "variants")
+PHASES = ("kernel", "main", "graph", "loop", "programs", "a/b", "cr", "mpc",
+          "bench", "ladder", "facade", "exact", "planners", "fleet",
+          "parallel", "variants")
 # the graph phase: replays a timed run of one trip's graph, and the
 # difference allowed between the graph's results and the eager loop's
 # where they are not bitwise equal
@@ -529,7 +553,8 @@ def path_shapes(bench_scaling):
             for b in [B] + [min(cap, B) for cap, _ in stages]:
                 if (K, w, b) not in shapes:
                     shapes.append((K, w, b))
-    for shape in ((B1_SHAPE,) + FACADE_SHAPES + FORCED_SHAPES + EXACT_SHAPES
+    for shape in ((B1_SHAPE,) + FACADE_SHAPES + PROGRAM_SHAPES
+                  + FORCED_SHAPES + EXACT_SHAPES
                   + FLEET_SHAPES + PARALLEL_SHAPES + (NEWTON_SHAPE,)):
         if shape not in shapes:
             shapes.append(shape)
@@ -1067,13 +1092,17 @@ def check_loop(torch, bench_harness, bt_cuda, cyclic_reduction):
     p1 = out["phase1"]
     if tuple(p1[n]["graph_launches"] for n in (
             "loop_first", "loop", "loop_again")) != (1, 1, 1) or tuple(
+            p1[n]["programs"] for n in (
+            "loop_first", "replay", "loop", "loop_again")) != (
+            1, 0, 1, 1) or tuple(
             p1[n]["captures"] for n in (
             "loop_first", "replay", "loop", "loop_again",
-            "replay_again")) != (1, 0, 0, 0, 0) or (
+            "replay_again")) != (2, 0, 0, 0, 0) or (
             p1["loop"]["loop_trips"] != trips):
-        raise AssertionError("phase 1 on the device loop: one capture on "
-                             "its first use and none after, one graph "
-                             "launch a solve running every trip")
+        raise AssertionError("phase 1 as one program: two captures on its "
+                             "first use (the trip, the program) and none "
+                             "after, one program call and one graph launch "
+                             "a solve running every trip")
     say("loop", f"phase 1: {trips} trips; ms a trip eager "
                 f"{p1['eager']['ms_a_trip']:.3f}, replay "
                 f"{p1['replay']['ms_a_trip']:.3f} / "
@@ -1138,6 +1167,13 @@ def check_loop(torch, bench_harness, bt_cuda, cyclic_reduction):
     mpc = run_sides("mpc", lambda: bench_harness.run_mpc(
         nlp1, cfg1, single, steps=LOOP_MPC_STEPS), mpc_sides)
     dev1 = trip_device_ms(torch)
+    # the card's own time of one tick: the tick program's graph (the last
+    # tick's inputs are still in its buffers) replayed between two events
+    tick = latest(TG._Program)
+    torch.cuda.synchronize()
+    tick_ms = _median_event_ms(torch, tick.graph.replay, 3, 1)
+    torch.cuda.synchronize()
+    absorb(tick.parts)
     ref = mpc["eager"]
     # the cold solve, the untimed first re-solve, the timed ones and the
     # ones dispatched back to back
@@ -1151,6 +1187,8 @@ def check_loop(torch, bench_harness, bt_cuda, cyclic_reduction):
         side.update(p50_ms=m["p50_ms"], pipelined_ms=m["pipelined_ms"],
                     statuses=m["statuses"], iters=m["iters"],
                     bitwise=equal, max_abs_diff=diff, device_ms_a_trip=dev1,
+                    device_ms_a_tick=tick_ms,
+                    tick_pool_bytes=tick.pool_bytes,
                     busy=dev1 * side["trips"] / (1e3 * side["wall_s"]))
         say("loop", f"mpc uas_2d N={MAIN_NSTEPS}, {LOOP_MPC_STEPS} ticks, "
                     f"{name}: {json.dumps(side)}")
@@ -1160,19 +1198,23 @@ def check_loop(torch, bench_harness, bt_cuda, cyclic_reduction):
         if name.startswith("loop") and (
                 not equal or side["idle_trips"]
                 or side["launches"] != side["trips"]
-                or side["graph_launches"] != solves):
+                or side["graph_launches"] != solves
+                or side["programs"] != solves):
             raise AssertionError(f"mpc {name}: the cold solve or a tick is "
                                  "not bitwise the eager route's, a launch "
                                  "is not a trip, or a solve is not one "
-                                 f"graph launch ({side['graph_launches']} "
-                                 f"for {solves})")
+                                 f"program call ({side['programs']}) and "
+                                 f"one graph launch "
+                                 f"({side['graph_launches']}) for {solves}")
         if name.startswith("replay") and not diff <= GRAPH_TOL:
             raise AssertionError(f"mpc {name}: the cold solve or a tick "
                                  f"differs from the eager route's by {diff}")
-        if side["captures"] != (name == "loop"):
+        if side["captures"] != (3 if name == "loop" else 0):
             raise AssertionError(f"mpc {name}: {side['captures']} captures; "
                                  "the cold solve and every tick share one "
-                                 "key, captured once on its first use")
+                                 "loop key (its trip captured once) and are "
+                                 "two programs (cold, warm), each captured "
+                                 "once on its first use")
     m = out["mpc"]
     say("loop", f"mpc: p50 eager {m['eager']['p50_ms']:.2f} ms, replay "
                 f"{m['replay']['p50_ms']:.2f} / "
@@ -1183,7 +1225,8 @@ def check_loop(torch, bench_harness, bt_cuda, cyclic_reduction):
                 f"{m['replay_again']['pipelined_ms']:.2f}, device loop "
                 f"{m['loop']['pipelined_ms']:.2f} / "
                 f"{m['loop_again']['pipelined_ms']:.2f}; the card's own "
-                f"{dev1:.3f} ms a trip")
+                f"{dev1:.3f} ms a trip, {tick_ms:.3f} ms a tick (the last "
+                f"tick's {ref['iters'][-1]} trips, one program replay)")
 
     out["overhead"] = loop_ms(torch)
     say("loop", f"the loop's own cost on a two-kernel body, "
@@ -1193,6 +1236,121 @@ def check_loop(torch, bench_harness, bt_cuda, cyclic_reduction):
     out["max_abs_err"] = max(
         side["max_abs_diff"] for kind in ("phase1", "staged")
         for name, side in out[kind].items() if name.startswith("loop"))
+    return out
+
+
+def check_programs(torch, bt_cuda, cyclic_reduction):
+    """Phase 4d: the reference's remaining jitted solves, each one
+    program a call on the card (``trip_graph.run``): the facade's cold
+    ``solve_batch`` at B=FACADE_B with a rescue of RESCUE_LANES lanes
+    (``solve_batched_rescue``: phase 1, the gather, the seeds, the flat
+    multistart batch and the merge) on its key's first use and twice
+    after, each after-call one program call and one graph launch, bitwise
+    the first use, its wall and the card's own ms and its pool bytes; the
+    same against the eager route at PROGRAM_B with PROGRAM_RESCUE lanes
+    (eager, first use, replay: bitwise); ``solve_multistart`` on both
+    shipped problems, eager, on its first use and replayed (bitwise, one
+    launch). The MPC's ticks are the loop phase's, the exact waves the
+    exact phase's."""
+    import numpy as np
+
+    from etol_tpu_torch import TrajectoryOptimizer, cli
+    from etol_tpu_torch.models import dynamics, problems
+    from etol_tpu_torch.solve import al_sqp
+
+    out = {"rescue": {}, "rescue_small": {}, "multistart_ocp": {},
+           "multistart_mip": {}}
+
+    def facade():
+        topt = TrajectoryOptimizer()
+        topt.load_configs(cli.default_config("ocp_2d_ex1.xml"))
+        topt.set_dynamics(dynamics.single_integrator)
+        topt.set_objective(lambda x, u, t, d: u[0] ** 2 + u[1] ** 2)
+        topt.setup()
+        return topt
+
+    def sides(kind, run, names):
+        """``run()`` on each (name, route); every result bitwise the
+        first's; the counts of each side."""
+        results = {}
+        for name, route in names:
+            results[name], out[kind][name] = loop_side(
+                torch, bt_cuda, cyclic_reduction, f"programs {kind} {name}",
+                run, route)
+        first = results[names[0][0]]
+        for name, side in out[kind].items():
+            side["bitwise"], side["max_abs_diff"] = bitwise(
+                torch, first, results[name])
+            if not side["bitwise"]:
+                raise AssertionError(f"programs {kind} {name}: not bitwise "
+                                     f"the {names[0][0]} side's (max |d| "
+                                     f"{side['max_abs_diff']})")
+            if name.startswith("replay") and (
+                    side["programs"], side["graph_launches"],
+                    side["captures"]) != (1, 1, 0):
+                raise AssertionError(
+                    f"programs {kind} {name}: {side['programs']} program "
+                    f"calls, {side['graph_launches']} graph launches, "
+                    f"{side['captures']} captures: one call, one launch")
+        return results[names[0][0]]
+
+    def report(kind, label, program):
+        """The card's own ms of one launch of ``program``'s graph (its
+        last call's inputs), each side's wall ms, the pool bytes."""
+        torch.cuda.synchronize()
+        dev_ms = _median_event_ms(torch, program.graph.replay, 3, 1)
+        torch.cuda.synchronize()
+        absorb(program.parts)
+        pool = sum(e.pool_bytes for e in (program, *program.parts))
+        for name, side in out[kind].items():
+            side.update(device_ms=dev_ms, pool_bytes_program=pool,
+                        busy=dev_ms / (1e3 * side["wall_s"]))
+            say("programs", f"{label}, {name}: {json.dumps(side)}")
+        say("programs", f"{label}: wall ms " + ", ".join(
+            f"{name} {1e3 * side['wall_s']:.1f}"
+            for name, side in out[kind].items())
+            + f"; the card's own {dev_ms:.1f} ms a launch; pool {pool} "
+              f"bytes (glue {program.pool_bytes}, {len(program.parts)} "
+              f"loops)")
+
+    # the facade's cold fleet with a rescue: x0 = (1, 2) plus offsets, as
+    # the facade phase makes them
+    rng = np.random.default_rng(0)
+    x0 = (np.array([1.0, 2.0]) + rng.uniform(
+        [-0.1, -0.1], [0.0, 0.1], size=(FACADE_B, 2))).astype(np.float32)
+    topt = facade()
+    res = sides("rescue", lambda: topt.solve_batch(
+        x0=x0, rescue_lanes=RESCUE_LANES), (
+        ("first_use", None), ("replay", None), ("replay_again", None)))
+    solved = float((res.status == 1).float().mean())
+    report("rescue", f"solve_batch B={FACADE_B}, rescue {RESCUE_LANES} "
+                     f"lanes x 4 starts, solved {solved:.4f}",
+           latest(TG._Program))
+    out["rescue_solved_fraction"] = solved
+    if not solved >= 0.99:
+        raise AssertionError(f"the rescued fleet solved {solved}")
+    sides("rescue_small", lambda: topt.solve_batch(
+        x0=x0[:PROGRAM_B], rescue_lanes=PROGRAM_RESCUE), (
+        ("eager", "eager"), ("first_use", None), ("replay", None)))
+    report("rescue_small", f"solve_batch B={PROGRAM_B}, rescue "
+                           f"{PROGRAM_RESCUE} lanes x 4 starts",
+           latest(TG._Program))
+
+    # multistart on both shipped problems (the facade phase's calls)
+    for kind, make, seed in (
+            ("multistart_ocp", problems.canonical_ocp_2d, 0),
+            ("multistart_mip", problems.canonical_mip_2d, cli.MIP_SEED)):
+        vgp, nlp = make()
+        data, _ = vgp.to_device()
+        res = sides(kind, lambda: al_sqp.solve_multistart(
+            nlp, al_sqp.SolverConfig(), data, 8,
+            torch.Generator().manual_seed(seed)), (
+            ("eager", "eager"), ("first_use", None), ("replay", None)))
+        report(kind, f"solve_multistart({make.__name__}, 8, seed {seed}): "
+                     f"status {int(res.status)}, objective "
+                     f"{float(res.obj):.6f}", latest(TG._Program))
+        if int(res.status) != 1:
+            raise AssertionError(f"{kind}: status {int(res.status)}")
     return out
 
 
@@ -1713,18 +1871,31 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
         return bt_cuda.LAUNCHES, by, cyclic_reduction.SOLVES
 
     def found(mres, seconds, launches, by, cr_solves):
-        return dict(obj=mres.obj, status=mres.status,
-                    certified=mres.certified, nodes=mres.nodes_solved,
-                    waves=mres.waves, trips=mres.trips, launches=launches,
-                    launches_by={"K%d_w%d_B%d" % key[1:]: n
-                                 for key, n in sorted(by.items())},
-                    cr_solves=cr_solves, seconds=seconds)
+        c = {k: TG.COUNTS[k] - c0[k] for k in c0}
+        f = dict(obj=mres.obj, status=mres.status,
+                 certified=mres.certified, nodes=mres.nodes_solved,
+                 waves=mres.waves, trips=mres.trips, launches=launches,
+                 launches_by={"K%d_w%d_B%d" % key[1:]: n
+                              for key, n in sorted(by.items())},
+                 cr_solves=cr_solves, seconds=seconds,
+                 programs=c["programs"], graph_launches=c["loop_graphs"],
+                 captures=c["captures"])
+        # every wave one program call and one graph launch; one key for
+        # the search (its trip and its program captured once)
+        if (f["programs"], f["graph_launches"]) != (
+                mres.waves, mres.waves) or f["captures"] > 2:
+            raise AssertionError(
+                f"exact: {f['programs']} program calls, "
+                f"{f['graph_launches']} graph launches and {f['captures']} "
+                f"captures for {mres.waves} waves")
+        return f
 
     # -- mip_2d_ex1.xml, convex, under both KKT routes
     vgp, nlp = problems.canonical_mip_2d()
     data, _ = vgp.to_device()
     for route in ("kernel", "cr"):
         reset_counts(bt_cuda, cyclic_reduction)
+        c0 = dict(TG.COUNTS)
         t0 = time.perf_counter()
         mres = side_branch.solve_exact(
             nlp, al_sqp.SolverConfig(kkt_solver=route), data,
@@ -1739,7 +1910,9 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
                      f" nodes in {mres.waves} waves, {mres.trips} trips, "
                      f"{seconds:.2f} s; {launches} kernel launches "
                      f"{f['launches_by']}, {cr_solves} cyclic-reduction "
-                     f"solves")
+                     f"solves; {f['programs']} program calls, "
+                     f"{f['graph_launches']} graph launches, "
+                     f"{f['captures']} captures")
         if mres.status != SOLVED or not mres.certified or not abs(
                 mres.obj - MIP_GOLDEN) <= MIP_TOL:
             raise AssertionError(f"exact mip under {route}: {f}")
@@ -1763,6 +1936,7 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
     topt.vgp, topt.nlp = vgp, nlp
     topt.data, topt.dims = vgp.to_device()
     reset_counts(bt_cuda, cyclic_reduction)
+    c0 = dict(TG.COUNTS)
     mres = topt.solve_exact(wave=COMPOSED_WAVE, max_nodes=EXACT_MAX_NODES,
                             convex_relaxation=True)
     launches, by, cr_solves = counts("composed")
@@ -1781,7 +1955,9 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
                  f"{np.round(boost, 4).tolist()}, xN {X[-1].tolist()}; "
                  f"{mres.nodes_solved} nodes in {mres.waves} waves, "
                  f"{mres.trips} trips, {topt.last_solve_seconds:.2f} s; "
-                 f"{launches} kernel launches {f['launches_by']}")
+                 f"{launches} kernel launches {f['launches_by']}; "
+                 f"{f['programs']} program calls, {f['graph_launches']} "
+                 f"graph launches, {f['captures']} captures")
     if topt.get_status() != Status.SOLVED or not mres.certified or not abs(
             topt.get_score() - COMPOSED_OPT) <= COMPOSED_TOL:
         raise AssertionError(f"exact composed: {f}")
@@ -2584,6 +2760,13 @@ def main(phases=PHASES):
         print(json.dumps({"phase": "loop", "card": CARD, **loop}),
               flush=True)
         clock.lap("loop")
+
+    # 4d. the rescue and multistart as one program each
+    if "programs" in phases:
+        progs = check_programs(torch, bt_cuda, cyclic_reduction)
+        print(json.dumps({"phase": "programs", "card": CARD, **progs}),
+              flush=True)
+        clock.lap("programs")
 
     # 5. in-situ A/B: kernel vs the plain scan path, same batch and seeds
     if "a/b" in phases:

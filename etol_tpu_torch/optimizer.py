@@ -300,8 +300,9 @@ class TrajectoryOptimizer:
         (the default) gathers the ``rescue_lanes`` (default B//8) worst
         lanes after the main phase and re-solves them with
         shooting-seeded multistart
-        (:func:`al_sqp.solve_batched_rescue`; skipped when every lane
-        converged in phase 1). Default (``rescue=None``): rescue
+        (:func:`al_sqp.solve_batched_rescue`; as in the JAX package it
+        always runs, and adopts nothing when every lane converged in
+        phase 1). Default (``rescue=None``): rescue
         runs on COLD solves only; a warm fleet re-solve (the
         steady-state MPC tick) skips it, because paying a B//8-lane
         multistart on every tick is the wrong economics

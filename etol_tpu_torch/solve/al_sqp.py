@@ -20,8 +20,12 @@ stored KKT blocks; the freeze wraps the whole trip. On a card the trip
 is captured once as a CUDA graph and the loop is one graph launch, a
 while node around the trip whose stop test runs on the card, the
 counterpart of the JAX package's one traced ``while_loop``
-(:mod:`.trip_graph`); the staged solve is one launch too. On the CPU a
-Python ``while`` tests ``active.any()`` once per trip.
+(:mod:`.trip_graph`). Each solve the JAX package jits (``solve``,
+``solve_batched``, ``solve_multistart``, ``solve_batched_rescue``,
+``solve_batched_staged``) is written once as steps around its loops and
+runs on a card as one program, one graph launch a call, its draws made
+before it. On the CPU a Python ``while`` tests ``active.any()`` once per
+trip.
 
 The KKT solve. ``kkt_solver="kernel"`` launches the CUDA kernel
 (:mod:`..ops.bt_cuda`) for float32 problems with node widths up to 9,
@@ -45,7 +49,6 @@ products corrupt the Gauss-Newton blocks once rho is large.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import torch
@@ -977,6 +980,21 @@ def _batch_steps(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
     return _finish(nlp, data, st)
 
 
+def _single_steps(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
+                  rho0, max_total):
+    """:func:`solve` as steps: ONE problem (``data``, ``z0``, ``lam0``
+    and the 0-dim ``rho0`` without a lane axis) run as a batch of one,
+    the lane axis added before the loop and taken off after it."""
+    def lane(a):
+        return a[None]
+
+    res = yield from _batch_steps(
+        nlp, cfg, tree_map(lane, data), None if z0 is None else lane(z0),
+        None if lam0 is None else tuple(lane(a) for a in lam0),
+        None if rho0 is None else rho0.reshape(1), max_total=max_total)
+    return tree_map(lambda a: a[0], res)
+
+
 def _run_steps(steps, at_loop):
     """Drive a generator of steps (:func:`_batch_steps`,
     :func:`_staged_steps`): ``at_loop(F, cfg, st, max_total)`` runs each
@@ -988,6 +1006,23 @@ def _run_steps(steps, at_loop):
             sent = at_loop(*steps.send(sent))
     except StopIteration as stop:
         return stop.value
+
+
+def _budget(cfg: SolverConfig, device):
+    """``cfg`` without its ``max_total`` and the budget as a 0-dim tensor
+    on ``device``: a program's buffer, so configs that differ only in
+    their budget share its key (:mod:`.trip_graph`)."""
+    return (dataclasses.replace(cfg, max_total=0),
+            torch.full((), cfg.max_total or cfg.max_outer * cfg.max_inner,
+                       dtype=torch.int64, device=device))
+
+
+def _on_device(a, data: VGPData):
+    """``a`` (None, a Python number or a tensor) as a tensor on the data's
+    device and in its dtype, made before a program, outside its graph."""
+    if a is None:
+        return None
+    return torch.as_tensor(a, dtype=data.x0.dtype, device=data.x0.device)
 
 
 def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
@@ -1003,15 +1038,17 @@ def _solve_batch(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, lam0,
     still running to the mask every process of a group runs (where the
     KKT solve is a collective, all of them must take the same trips).
 
-    The loop runs where :func:`.trip_graph.loop` sends it: on a card, one
-    graph launch, a while node around the captured trip with its stop
-    test on the card; on the CPU, and for a collective ``agree``, the
+    On a card the whole solve is one :func:`.trip_graph.program` (the
+    prologue, the loop's while node with its stop test on the card, the
+    result), as the JAX package jits its ``solve_batched`` whole; on the
+    CPU, and for a collective ``agree``, the steps run eagerly around the
     eager loop with one host sync a trip."""
     from . import trip_graph
 
-    return _run_steps(
-        _batch_steps(nlp, cfg, data, z0, lam0, rho_init, box, kkt_solve),
-        functools.partial(trip_graph.loop, agree=agree))
+    cfg, budget = _budget(cfg, data.x0.device)
+    return trip_graph.run(_batch_steps, (nlp, cfg), data, z0, lam0,
+                          _on_device(rho_init, data), box, kkt_solve, budget,
+                          agree=agree)
 
 
 def init_multipliers(nlp: NLP, data: VGPData):
@@ -1041,18 +1078,18 @@ def solve(
     under ``kkt_solver="kernel"`` every Newton iteration is one launch
     of the kernel at B=1 (float32, node width up to 9; else cyclic
     reduction), and ``"cr"`` selects cyclic reduction, the JAX package's
-    route for its unbatched solve, by name."""
-    def lane(a):
-        return a[None]
+    route for its unbatched solve, by name.
 
-    if lam0 is not None:
-        lam0 = tuple(lane(a) for a in lam0)
-    res = solve_batched(
-        nlp, cfg, tree_map(lane, data),
-        None if z0 is None else lane(z0), lam0,
-        None if rho0 is None else torch.as_tensor(rho0).reshape(1),
-    )
-    return tree_map(lambda a: a[0], res)
+    On a card the solve is one :func:`.trip_graph.program`, the lane axis
+    added and taken off inside it: an MPC tick is one copy in, one graph
+    launch and one copy out. ``rho0`` (a number or a tensor) is brought
+    to the data's device first, outside the program."""
+    from . import trip_graph
+
+    cfg, budget = _budget(cfg, data.x0.device)
+    return trip_graph.run(_single_steps, (nlp, cfg), data, z0,
+                          None if lam0 is None else tuple(lam0),
+                          _on_device(rho0, data), budget)
 
 
 def solve_batched(
@@ -1065,7 +1102,8 @@ def solve_batched(
 ) -> SolveResult:
     """Solve a batch: every tensor of ``data`` has a leading lane axis.
     ``z0`` [B, nz], ``lam0`` (each [B, ...]) and ``rho0`` [B] warm-start
-    the whole fleet."""
+    the whole fleet. On a card one graph launch a call
+    (:func:`_solve_batch`)."""
     return _solve_batch(nlp, cfg, data, z0, lam0, rho0)
 
 
@@ -1122,17 +1160,20 @@ def select_best(res: SolveResult, cfg: SolverConfig, maximize: bool):
     return torch.argmin(score, dim=-1)
 
 
-def _multistart_lanes(nlp: NLP, cfg: SolverConfig, data: VGPData, deltas,
-                      z_shoot=None) -> SolveResult:
-    """:func:`solve_multistart` for M problems at once (``data`` with a
-    lane axis, ``deltas`` [M, n, nx], ``z_shoot`` [M, nz] or None): the
-    M·n starts are ONE flat batch of :func:`solve_batched`, and every
-    lane keeps its best start."""
+def _multistart_steps(nlp: NLP, cfg: SolverConfig, data: VGPData, deltas,
+                      units, per_lane: bool, max_total):
+    """:func:`solve_multistart` for M problems at once, as steps
+    (:func:`_run_steps`): ``data`` with a lane axis, ``deltas`` [M, n,
+    nx], ``units`` the shooting seeds' unit draws
+    (:func:`.shooting.draw_units`; ``per_lane``: each lane's own) or None
+    for no seed. The M·n starts are ONE flat batch, and every lane keeps
+    its best start."""
     M, n = deltas.shape[:2]
-    if z_shoot is None:
+    if units is None:
         z0s = map_lanes(
             lambda d, dl: multistart_guesses(nlp, d, dl), data, deltas)
     else:
+        z_shoot = shooting.guess_from_units(nlp, data, units, per_lane)
         z0s = map_lanes(
             lambda d, dl, zs: multistart_guesses(nlp, d, dl, zs),
             data, deltas, z_shoot)
@@ -1141,8 +1182,9 @@ def _multistart_lanes(nlp: NLP, cfg: SolverConfig, data: VGPData, deltas,
         return a[:, None].expand((M, n) + tuple(a.shape[1:])).reshape(
             (M * n,) + tuple(a.shape[1:]))
 
-    res = solve_batched(nlp, cfg, tree_map(flat, data),
-                        z0s.reshape(M * n, -1))
+    res = yield from _batch_steps(nlp, cfg, tree_map(flat, data),
+                                  z0s.reshape(M * n, -1), None,
+                                  max_total=max_total)
     res = tree_map(lambda a: a.reshape((M, n) + tuple(a.shape[1:])), res)
     best = select_best(res, cfg, nlp.maximize)
     lanes = torch.arange(M, device=best.device)
@@ -1168,28 +1210,36 @@ def solve_multistart(
     knife-edge sensitive to which basin it drains into. Guesses: the
     nominal one, smooth half-sine state bumps, and (``shooting_samples >
     0``) the best collision-free randomized rollout
-    (:mod:`.shooting`). The starts are one flat batch of
-    :func:`solve_batched`.
+    (:mod:`.shooting`). The starts are one flat batch.
 
     The bumps come from ``generator`` through :func:`draw_deltas`, then
-    the shooting units. With no generator the draws are made on the host
-    from seed 0, so the starts are the same on every device. Which
-    starts converge is luck of the draw on a field like
-    ``mip_2d_ex1.xml`` (about one start in five does). ``deltas``
-    [n_starts, nx] hands the bumps in instead (a test gives both
-    packages the same ones)."""
+    the shooting units (:func:`.shooting.draw_units`), both drawn before
+    the solve. With no generator the draws are made on the host from seed
+    0, so the starts are the same on every device. Which starts converge
+    is luck of the draw on a field like ``mip_2d_ex1.xml`` (about one
+    start in five does). ``deltas`` [n_starts, nx] hands the bumps in
+    instead (a test gives both packages the same ones).
+
+    On a card the rest is one :func:`.trip_graph.program`, as the JAX
+    package jits ``solve_multistart`` whole: the guesses, the seed's
+    rollouts, the flat batch's solve and the pick of the best start."""
+    from . import trip_graph
+
     dev, dtype = data.x0.device, data.x0.dtype
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if deltas is None:
         deltas = draw_deltas(n_starts, nlp.dims.nx, spread, generator, dev,
                              dtype)
-    lanes1 = tree_map(lambda a: a[None], data)
-    z_shoot = None
+    units = None
     if shooting_samples > 0:
-        z_shoot = shooting.plan_guess(nlp, lanes1, shooting_samples,
-                                      generator)
-    res = _multistart_lanes(nlp, cfg, lanes1, deltas[None], z_shoot)
+        units = shooting.draw_units(shooting_samples, nlp.dims.nsteps,
+                                    data.u_lb.shape[-1], 0, 8, generator,
+                                    dev, dtype)
+    cfg, budget = _budget(cfg, dev)
+    res = trip_graph.run(_multistart_steps, (nlp, cfg),
+                         tree_map(lambda a: a[None], data),
+                         deltas.to(dev)[None], units, False, budget)
     return tree_map(lambda a: a[0], res)
 
 
@@ -1205,6 +1255,26 @@ def rescue_merge(res1: SolveResult, res2: SolveResult, idx) -> SolveResult:
     return tree_map(
         lambda a, b: a.index_copy(0, idx, _sel(better, b, a[idx])),
         res1, res2)
+
+
+def _rescue_steps(nlp: NLP, cfg: SolverConfig, rescue_cfg: SolverConfig,
+                  data: VGPData, z0, lam0, rho0, deltas, units, max_total,
+                  rescue_total):
+    """:func:`solve_batched_rescue` as steps: phase 1 over the batch
+    under ``max_total``, then the M = ``deltas.shape[0]`` worst lanes
+    (unconverged first, stable order) gathered and solved cold from
+    ``deltas`` [M, n, nx] and the per-lane seeds of ``units`` under
+    ``rescue_cfg`` and ``rescue_total``, one flat batch, and merged back
+    where better. It reads nothing on the host: M is static, and phase 2
+    runs whatever phase 1 left, as in the JAX package's one jit."""
+    res1 = yield from _batch_steps(nlp, cfg, data, z0, lam0, rho0,
+                                   max_total=max_total)
+    ok = res1.status == int(Status.SOLVED)
+    idx = torch.argsort(ok.to(torch.int32), stable=True)[:deltas.shape[0]]
+    res2 = yield from _multistart_steps(
+        nlp, rescue_cfg, tree_map(lambda a: a[idx], data), deltas, units,
+        True, rescue_total)
+    return rescue_merge(res1, res2, idx)
 
 
 def solve_batched_rescue(
@@ -1233,33 +1303,35 @@ def solve_batched_rescue(
     :func:`solve_batched_staged` when failures are budget problems, this
     when they are basin problems.
 
-    When every lane of phase 1 is SOLVED, phase 2 is skipped: no rescue
-    result could be adopted, so the result is the same (the JAX package
-    runs its fixed-shape phase 2 regardless).
+    Phase 2 always runs, as in the JAX package: when every lane of phase
+    1 is SOLVED no rescue result is adopted, so the result is phase 1's.
 
     Draws, in order, from ``generator`` (made on the host from seed 0
-    when none is given): the bumps [M, n_rescue_starts, nx], then the
-    shooting units with a lane axis (every rescued lane has draws of its
-    own)."""
-    res1 = solve_batched(nlp, cfg, data, z0, lam0, rho0)
-    ok = res1.status == int(Status.SOLVED)
-    if bool(ok.all()):
-        return res1
-    B = res1.status.shape[0]
+    when none is given), before the solve and on every call, also when
+    phase 1 solves every lane: the bumps [M, n_rescue_starts, nx], then
+    the shooting units with a lane axis (every rescued lane has draws of
+    its own). On a card the rest is one :func:`.trip_graph.program`, as
+    the JAX package jits the rescue whole: phase 1, the gather, the
+    guesses and seeds, the flat batch's solve, the pick and the merge."""
+    from . import trip_graph
+
+    B = data.x0.shape[0]
     M = min(rescue_lanes or max(1, B // 8), B)
     dev, dtype = data.x0.device, data.x0.dtype
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    idx = torch.argsort(ok.to(torch.int32), stable=True)[:M]
-    sub = tree_map(lambda a: a[idx], data)
     deltas = draw_deltas(n_rescue_starts, nlp.dims.nx, 0.4, generator, dev,
                          dtype, lanes=M)
-    z_shoot = None
+    units = None
     if shooting_samples > 0:
-        z_shoot = shooting.plan_guess(nlp, sub, shooting_samples, generator,
-                                      per_lane=True)
-    res2 = _multistart_lanes(nlp, rescue_cfg or cfg, sub, deltas, z_shoot)
-    return rescue_merge(res1, res2, idx)
+        units = shooting.draw_units(shooting_samples, nlp.dims.nsteps,
+                                    data.u_lb.shape[-1], 0, 8, generator,
+                                    dev, dtype, lanes=M)
+    rescue_cfg, rescue_total = _budget(rescue_cfg or cfg, dev)
+    cfg, budget = _budget(cfg, dev)
+    return trip_graph.run(_rescue_steps, (nlp, cfg, rescue_cfg), data, z0,
+                          lam0, _on_device(rho0, data), deltas, units,
+                          budget, rescue_total)
 
 
 def _staged_steps(nlp: NLP, cfg: SolverConfig, data: VGPData, z0, stages,
@@ -1319,8 +1391,8 @@ def solve_batched_staged(
     penalty) for ``budget`` more iterations. Improved results scatter
     back; lanes that still fail keep an honest MAX_ITER.
 
-    On a card the whole solve is one program, as the JAX package's is one
-    jit (:func:`.trip_graph.staged`): one graph launch runs phase 1's
+    On a card the whole solve is one :func:`.trip_graph.program`, as the
+    JAX package's is one jit: one graph launch runs phase 1's
     loop, each stage's gather, loop and merge, with every stop test on
     the card. On the CPU it runs eagerly.
 
@@ -1330,8 +1402,11 @@ def solve_batched_staged(
     """
     from . import trip_graph
 
-    res, stage_trips = trip_graph.staged(nlp, cfg, data, z0, stages, lam0,
-                                         rho0)
+    cfg, budget = _budget(cfg, data.x0.device)
+    res, stage_trips = trip_graph.run(
+        _staged_steps, (nlp, cfg), data, z0,
+        tuple(tuple(s) for s in stages), lam0, _on_device(rho0, data),
+        budget)
     if return_stage_trips:
         return res, tuple(torch.stack(stage_trips).tolist())
     return res

@@ -20,7 +20,9 @@ one key for every lane (``tests/test_torch_shooting.py`` hands
 :func:`plan` makes the draws eagerly and runs :func:`plan_from_units`
 as a program of :mod:`.trip_graph`: on a card captured once per key as a
 CUDA graph and replayed, as the JAX package jits its ``plan``; on the
-CPU eagerly.
+CPU eagerly. The multistart and rescue solves, programs of their own,
+draw with :func:`draw_units` first and call :func:`guess_from_units`
+inside.
 """
 from __future__ import annotations
 
@@ -237,6 +239,24 @@ def plan(
                               effort_weight=effort_weight, per_lane=per_lane)
 
 
+def _packed(nlp: NLP, X, U):
+    """Rollouts X [B, K, nx] and U_nodes [B, K, nu] packed as decision
+    vectors z [B, nz] (param columns zero)."""
+    parts = [X, U]
+    if nlp.dims.n_params:
+        parts.append(X.new_zeros(X.shape[:2] + (nlp.dims.n_params,)))
+    return torch.cat(parts, dim=-1).reshape(X.shape[0], -1)
+
+
+def guess_from_units(nlp: NLP, data: VGPData, units, per_lane: bool = False):
+    """The deterministic part of :func:`plan_guess`: the best rollout per
+    lane from the unit draws ``units`` (:func:`draw_units`) through
+    :func:`plan_from_units`, packed as z [B, nz]. What the multistart and
+    rescue bodies call inside their own program."""
+    X, U, _ = plan_from_units(nlp.dynamics, data, *units, per_lane=per_lane)
+    return _packed(nlp, X, U)
+
+
 def plan_guess(nlp: NLP, data: VGPData, n_samples: int = 4096,
                generator: Optional[torch.Generator] = None,
                pulled: int = 0, n_cand: int = 8, per_lane: bool = False):
@@ -246,7 +266,4 @@ def plan_guess(nlp: NLP, data: VGPData, n_samples: int = 4096,
     X, U, _ = plan(nlp.dynamics, nlp.dims.nsteps, data, n_samples,
                    generator, pulled=pulled, n_cand=n_cand,
                    per_lane=per_lane)
-    parts = [X, U]
-    if nlp.dims.n_params:
-        parts.append(X.new_zeros(X.shape[:2] + (nlp.dims.n_params,)))
-    return torch.cat(parts, dim=-1).reshape(X.shape[0], -1)
+    return _packed(nlp, X, U)

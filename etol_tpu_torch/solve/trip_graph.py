@@ -1,5 +1,5 @@
-"""The solver loop, the staged solve, and the seeds and planners, each
-run on a CUDA card as captured graphs with no host decision inside.
+"""The solver loop, the solves, and the seeds and planners, each run on
+a CUDA card as captured graphs with no host decision inside.
 
 Counterpart of how the JAX package runs its solve
 (``etol_tpu/solve/al_sqp.py``: "Whole solve is one traced program:
@@ -32,7 +32,8 @@ side: each trip is a replay of the captured graph, and the host reads
 the stop flag ``lag`` trips late (``LAG`` = 1 by default) from pinned
 memory, so ``lag`` frozen trips run past the stop
 (``COUNTS["idle_trips"]``; they change no leaf, so the results are
-bitwise the eager loop's). On the CPU, "static" runs the same work in
+bitwise the eager loop's); there, as on "eager", a solve's steps run
+eagerly around its loops. On the CPU, "static" runs the same work in
 the same order without capturing it, the loop as the host's ``while``
 on the same flag: what the CPU tests run.
 
@@ -69,19 +70,27 @@ tallies (``bt_cuda``'s and ``cyclic_reduction``'s counters add a graph's
 recorded launches for each trip) and to ``graph_loop``'s counts. Call it
 before reading a count; the cache calls it before it drops an entry.
 
-The staged solve. The JAX package jits ``solve_batched_staged`` whole:
-phase 1, every compaction stage and the gathers and merges between them
-are one program. :func:`staged` runs it so on the static route, as a
-:func:`program` whose body is the staged steps
-(:func:`.al_sqp._staged_steps`) with each loop through :func:`loop`.
+The solves. The JAX package jits each of its solves whole: ``solve``,
+``solve_batched``, ``solve_multistart``, ``solve_batched_rescue`` and
+``solve_batched_staged`` are each one program with no host decision
+inside (phase 1, the gathers, the stages or the rescue's multistart, the
+merges). :func:`run` runs each so on the static route, as a
+:func:`program` whose body (:class:`_Solve`) is the solve's steps
+(:mod:`.al_sqp`'s step generators) with each loop through :func:`loop`.
 Inside a capture :func:`loop` captures the copy into its entry's buffers
 and then adds the entry's device loop to the graph being captured
 (``graph_loop.insert``), so the captured program is one graph: the
-prologue, phase 1's loop at B, each stage's gather and ``_start`` and
-its loop at M = min(count, B), the merges. The program holds the entries
-of its loops, so the cache never frees a trip that its graph runs; while
-a program is built, the cache drops nothing. The stage trips come back as
-0-dim tensors.
+prologue (``_ALFuncs``, ``_start``), each loop, the glue between loops
+and the result (``_finish``, the pick of the best start, the merges).
+An MPC tick is then one copy in, one launch and one copy out. The draws
+(the rescue's and multistart's bumps and shooting units) are made
+before the program. The configs' ``max_total`` is a 0-dim argument, not
+a field of the key; a cold solve (no ``z0``) and its warm re-solves are
+two keys, which share their loop's entry. A program holds the entries of
+its loops, so the cache never frees a trip that its graph runs and drops
+such an entry only after its program; while a program is built, the
+cache drops nothing. The staged solve's stage trips come back as 0-dim
+tensors.
 
 Programs. The JAX package jits its seeds and planners too
 (``etol_tpu/solve/shooting.py`` ``plan``, ``planners.py`` ``_plan_cem``
@@ -98,9 +107,11 @@ leaf (the dynamics, sizes, names, Python floats) by its value, with the
 device. On the CPU the body runs eagerly on the caller's tensors.
 
 A program's first use runs the body eagerly on its buffers (its result
-is the call's; a staged solve's loops run there on their entries' device
+is the call's; a solve's loops run there on their entries' device
 loops, each entry's first use included), then captures it; later calls
-copy in, replay and clone out.
+copy in, replay and clone out. A body calls the work below it directly
+(the steps, ``plan_from_units``): :func:`program` called inside a body
+or a capture raises.
 
 The cache, the loops' and the programs' keys together, holds at most
 MAX_ENTRIES keys and drops the least recently used first, also while the
@@ -119,6 +130,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import time
 
 import torch
@@ -127,7 +139,7 @@ from ..core.problem import (tree_flatten, tree_flatten_with_paths,
                             tree_map, tree_unflatten)
 from ..ops import bt_cuda, cyclic_reduction, graph_loop
 from .al_sqp import (SolverConfig, _active, _ALFuncs, _exponents,
-                     _run_steps, _staged_steps, _trip)
+                     _run_steps, _trip)
 
 #: the routes :func:`override` forces
 ROUTES = ("eager", "static", "replay")
@@ -235,35 +247,35 @@ def loop(F: _ALFuncs, cfg: SolverConfig, st: dict, max_total,
     return out
 
 
-def staged(nlp, cfg: SolverConfig, data, z0, stages, lam0, rho0):
-    """:func:`.al_sqp.solve_batched_staged`'s run: (the result, the stage
-    trips as 0-dim tensors). On the static route one :func:`program` of
-    the staged steps, its loops captured into it; on the others the steps
-    with each loop through :func:`loop`."""
-    max_total = cfg.max_total or cfg.max_outer * cfg.max_inner
-    body = _StagedSolve(nlp, dataclasses.replace(cfg, max_total=0),
-                        tuple(tuple(s) for s in stages))
-    device = data.x0.device
-    if route_of(device, data.x0.shape[0] > 0) != "static":
-        return body(data, z0, lam0, rho0, max_total)
-    return program(body, data, z0, lam0, rho0,
-                   torch.full((), max_total, dtype=torch.int64,
-                              device=device))
+def run(steps, static: tuple, *args, agree=None):
+    """``steps(*static, *args)`` to its end: ``steps`` is one of
+    :mod:`.al_sqp`'s step generators (:func:`.al_sqp._batch_steps`,
+    ``_single_steps``, ``_staged_steps``, ``_multistart_steps``,
+    ``_rescue_steps``), ``static`` its leading arguments that are no
+    tensors (the NLP, the configs with ``max_total`` taken out) and
+    ``args`` the rest, the problem data first. On the static route one
+    :func:`program` whose body is the steps with every loop captured into
+    it (``static`` the body's key, with the tree of ``args``); on the
+    others, and for a collective ``agree``, the steps with each loop
+    through :func:`loop`."""
+    data = args[0]
+    if agree is None and route_of(data.x0.device,
+                                  data.x0.numel() > 0) == "static":
+        return program(_Solve(steps, static), *args)
+    return _run_steps(steps(*static, *args),
+                      functools.partial(loop, agree=agree))
 
 
 @dataclasses.dataclass(frozen=True)
-class _StagedSolve:
-    """The staged solve's body for :func:`program`: the NLP, the config
-    (its ``max_total`` the call's argument) and the stages are its key's."""
+class _Solve:
+    """A solve's body for :func:`program`: a step generator and its
+    static arguments, both of the key."""
 
-    nlp: object
-    cfg: SolverConfig
-    stages: tuple
+    steps: object
+    static: tuple
 
-    def __call__(self, data, z0, lam0, rho0, max_total):
-        return _run_steps(_staged_steps(self.nlp, self.cfg, data, z0,
-                                        self.stages, lam0, rho0, max_total),
-                          loop)
+    def __call__(self, *args):
+        return _run_steps(self.steps(*self.static, *args), loop)
 
 
 def route_of(device, capturable: bool = True) -> str:
@@ -283,10 +295,18 @@ def program(body, *args, **kwargs):
     body captured on the key's first use and replayed; on the CPU
     eagerly. ``args`` and ``kwargs`` are trees of tensors and other
     leaves; the body must read nothing on the host, and the result is a
-    tree of tensors, cloned out of the buffers."""
+    tree of tensors, cloned out of the buffers. A body calls the work
+    below it directly: a program called while another runs its body (or
+    inside any capture) raises."""
     tree = (args, kwargs)
     device = next(a.device for a in tree_flatten(tree)
                   if isinstance(a, torch.Tensor))
+    if _PARTS is not None or (device.type == "cuda"
+                              and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            f"program({getattr(body, '__name__', body)!r}) inside another "
+            "program's body or a capture: a body calls the steps and "
+            "plan_from_units directly")
     if route_of(device) == "eager":
         return body(*args, **kwargs)
     key = (body, str(device), _spec(tree))
@@ -298,10 +318,12 @@ def program(body, *args, **kwargs):
 
 def _spec(tree) -> tuple:
     """A tree's part of a key: each tensor leaf by its shape and dtype,
-    every other leaf by its value."""
+    every other leaf by its value (a KKT solver by its ``graph_key``,
+    where it has one)."""
     return tuple(
         (path, tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
-        else (path, type(a), a) for path, a in tree_flatten_with_paths(tree))
+        else (path, type(a), getattr(a, "graph_key", a))
+        for path, a in tree_flatten_with_paths(tree))
 
 
 def _eager(F, cfg, st, max_total, agree):
@@ -343,7 +365,11 @@ def _evict(device) -> None:
     while len(_CACHE) > MAX_ENTRIES or (
             len(_CACHE) > 1 and pool_bytes() + static_bytes() > limit):
         settle()
-        _CACHE.popitem(last=False)
+        # the least recently used key that no cached program holds (a
+        # program's loops go with it, though their keys are not used
+        # while it replays)
+        held = {p for e in _CACHE.values() for p in e.parts}
+        del _CACHE[next(k for k, e in _CACHE.items() if e not in held)]
 
 
 def _buffer(t: torch.Tensor) -> torch.Tensor:

@@ -248,18 +248,27 @@ def test_rescue_solves_what_a_tight_budget_left():
 
 
 def test_rescue_is_skipped_when_every_lane_solved(monkeypatch):
+    """When phase 1 solves every lane, phase 2 still runs, as in the JAX
+    package (its rescue is fixed-shape, with no host read to skip it),
+    and adopts nothing: every field is phase 1's."""
     tv, tn = tproblems.canonical_ocp_2d()
     td, _ = tv.to_device(device="cpu")
     bd = tal.tree_map(lambda a: a[None].expand((2,) + tuple(a.shape)), td)
     res1 = tal.solve_batched(tn, tal.SolverConfig(), bd)
     assert res1.status.tolist() == [SOLVED] * 2
+    ran = []
+    steps = tal._multistart_steps
 
-    def no_rescue(*a, **kw):
-        raise AssertionError("phase 2 ran with every lane SOLVED")
+    def counted(*a, **kw):
+        ran.append(a[2].x0.shape[0])
+        return (yield from steps(*a, **kw))
 
-    monkeypatch.setattr(tal, "_multistart_lanes", no_rescue)
-    res = tal.solve_batched_rescue(tn, tal.SolverConfig(), bd)
-    assert torch.equal(res.z, res1.z)
+    monkeypatch.setattr(tal, "_multistart_steps", counted)
+    res = tal.solve_batched_rescue(tn, tal.SolverConfig(), bd,
+                                   shooting_samples=16)
+    assert ran == [1]  # phase 2 over M = max(1, 2 // 8) lanes
+    for f in dataclasses.fields(res):
+        assert torch.equal(getattr(res, f.name), getattr(res1, f.name)), f
 
 
 def test_per_lane_shooting_units():
