@@ -375,10 +375,10 @@ GRAPH_REPS = 10
 GRAPH_TOL = 1e-6
 # the loop phase: MPC ticks, the trips of the loop's own timing, and the
 # bytes its condition kernel moves a trip (the flag read, the two
-# counters read and written)
+# counters and the stamp slot's trips read and written)
 LOOP_MPC_STEPS = 20
 LOOP_BENCH_TRIPS = 1000
-LOOP_COND_BYTES = 1 + 2 * 16
+LOOP_COND_BYTES = 1 + 3 * 16
 # the planners phase: the planner-seeded solves, and the facade's budget
 # on ocp_2d_ex1.xml: 4 s, 8192 samples, a quarter of its problem-derived
 # 16 s (32768 samples, 511 trips a tree, 48 s of the phase on a slower
@@ -957,12 +957,15 @@ def absorb(entries):
 def loop_ms(torch, reps=LOOP_BENCH_TRIPS):
     """The loop's own cost a trip, on a body of two small kernels (a
     counter and its flag): the device loop (one graph launch between CUDA
-    events) against the plain version, the same body replayed with the
-    flag read on the host each trip (host clock, medians of 3 runs)."""
+    events), inserted with a stamp slot as the solver's loops are,
+    against the plain version, the same body replayed with the flag read
+    on the host each trip (host clock, medians of 3 runs). The slot's
+    trips and runs must match the loop's device counters."""
     dev = torch.device("cuda")
     n = torch.zeros((), dtype=torch.int64, device=dev)
     flag = torch.zeros((), dtype=torch.bool, device=dev)
     counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    slot = torch.zeros(GL.SLOT, dtype=torch.int64, device=dev)
 
     def body():
         n.add_(1)
@@ -978,7 +981,7 @@ def loop_ms(torch, reps=LOOP_BENCH_TRIPS):
         body()
     outer = torch.cuda.CUDAGraph()
     with torch.cuda.graph(outer):
-        GL.insert(graph.raw_cuda_graph(), flag, counts)
+        GL.insert(graph.raw_cuda_graph(), flag, counts, slot)
 
     def reset():
         n.zero_()
@@ -996,6 +999,13 @@ def loop_ms(torch, reps=LOOP_BENCH_TRIPS):
     if int(n) != reps or counts.tolist()[1] % reps:
         raise AssertionError(f"the timed device loop ran {int(n)} trips, "
                              f"not {reps}")
+    launches, trips = counts.tolist()
+    stamped = dict(zip(GL.SLOT_FIELDS, slot.tolist()))
+    if (stamped["trips"], stamped["runs"]) != (trips, launches - trips) \
+            or stamped["ns"] <= 0:
+        raise AssertionError(f"the loop's stamp slot {stamped} does not "
+                             f"match its counters ({trips} trips in "
+                             f"{launches - trips} runs)")
     plain_ms = host_ms(torch, plain, 3) / reps
     return dict(ms=dev_ms, plain_ms=plain_ms, trips=reps,
                 bound_ms=1e3 * LOOP_COND_BYTES / HBM_BYTES_PER_S,

@@ -13,6 +13,16 @@
 //     trip writes at its end (any lane active), adds one to the loop's
 //     launch counter and, in the while node's body, one to its trip
 //     counter, and sets the while node's condition handle from the flag.
+//     Where the loop has a stamp slot (four unsigned 64-bit integers on
+//     the card, one slot an insertion: two loops of one program may run
+//     one trip graph), the head kernel writes %globaltimer into slot[0]
+//     and adds one to slot[3] (the loop's runs), the body's adds one to
+//     slot[2] (its trips), and the kernel that ends the loop adds the
+//     time since slot[0] to slot[1]: the loop's card time in ns.
+//   * phase_stamp_kernel: one thread, launched on a stream (captured into
+//     a traced trip between its phases). It adds the %globaltimer time
+//     since buf[0] to buf[1 + phase] and writes the time to buf[0]; phase
+//     -1 only writes it.
 //   * etol_graph_loop_insert: adds a loop to the graph a stream is
 //     capturing, after the work captured so far:
 //         head: loop_cond_kernel (body = 0)   -- test before the first trip
@@ -23,12 +33,14 @@
 //     lax.while_loop tests its cond before the first body. So a loop is
 //     one more step of a torch capture: alone in one (a solve's loop), or
 //     between the captured work before and after it (the staged solve).
-//   * etol_graph_loop_load / _versions.
+//   * etol_graph_loop_load / _versions, etol_phase_stamp.
 //
 // What bounds it: nothing of its own. The condition kernel moves 33 bytes
-// (the flag, the two counters read and written) and does no arithmetic;
-// its cost is one dependent launch inside the graph a trip, which is what
-// the host's replay and its wait on a flag a trip late cost before.
+// (the flag, the two counters read and written; with a stamp slot 16 to
+// 24 more) and does no arithmetic; its cost is one dependent launch inside
+// the graph a trip, which is what the host's replay and its wait on a flag
+// a trip late cost before. A traced trip adds a phase stamp (16 bytes)
+// at each of its phase boundaries.
 //
 // The stream and graph handles passed in are torch's (a CUstream and a
 // CUgraph of the CUDA driver, valid across the two runtimes in the
@@ -43,20 +55,45 @@
 
 namespace {
 
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 __global__ void loop_cond_kernel(cudaGraphConditionalHandle handle,
                                  const unsigned char* flag,
-                                 unsigned long long* counts, int body) {
+                                 unsigned long long* counts,
+                                 unsigned long long* stamp, int body) {
   counts[0] += 1;     // launches of this kernel
   counts[1] += body;  // trips run under the loop
-  cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+  const bool more = *flag;
+  if (stamp != nullptr) {
+    const unsigned long long now = globaltimer();
+    if (body) {
+      stamp[2] += 1;
+    } else {
+      stamp[0] = now;
+      stamp[3] += 1;
+    }
+    if (!more) stamp[1] += now - stamp[0];
+  }
+  cudaGraphSetConditional(handle, more ? 1u : 0u);
+}
+
+__global__ void phase_stamp_kernel(unsigned long long* buf, int phase) {
+  const unsigned long long now = globaltimer();
+  if (phase >= 0) buf[1 + phase] += now - buf[0];
+  buf[0] = now;
 }
 
 cudaError_t add_cond_kernel(cudaGraphNode_t* node, cudaGraph_t graph,
                             const cudaGraphNode_t* deps, size_t n_deps,
                             cudaGraphConditionalHandle handle,
                             const unsigned char* flag,
-                            unsigned long long* counts, int body) {
-  void* args[] = {&handle, &flag, &counts, &body};
+                            unsigned long long* counts,
+                            unsigned long long* stamp, int body) {
+  void* args[] = {&handle, &flag, &counts, &stamp, &body};
   cudaKernelNodeParams p = {};
   p.func = reinterpret_cast<void*>(loop_cond_kernel);
   p.gridDim = dim3(1);
@@ -108,10 +145,12 @@ cudaError_t wait_on(cudaStream_t stream, cudaGraphNode_t* node) {
 // loop around the captured graph `trip` (a cudaGraph_t, cloned in) with
 // its flag `flag` (a 1-byte bool on the card) and its counters `counts`
 // (two unsigned 64-bit integers on the card: launches of the condition
-// kernel, trips); what the stream captures next runs after the loop. The
-// flag and the counters must outlive every graph made from the capture.
+// kernel, trips) and its stamp slot `stamp` (four unsigned 64-bit integers
+// on the card, or null: see loop_cond_kernel); what the stream captures
+// next runs after the loop. The flag, the counters and the slot must
+// outlive every graph made from the capture.
 extern "C" int etol_graph_loop_insert(void* stream, void* trip, void* flag,
-                                      void* counts) {
+                                      void* counts, void* stamp) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
   cudaGraph_t graph = nullptr;
@@ -126,8 +165,9 @@ extern "C" int etol_graph_loop_insert(void* stream, void* trip, void* flag,
   if (e != cudaSuccess) return (int)e;
   const unsigned char* f = static_cast<const unsigned char*>(flag);
   unsigned long long* c = static_cast<unsigned long long*>(counts);
+  unsigned long long* st = static_cast<unsigned long long*>(stamp);
   cudaGraphNode_t head;
-  e = add_cond_kernel(&head, graph, deps, n_deps, handle, f, c, 0);
+  e = add_cond_kernel(&head, graph, deps, n_deps, handle, f, c, st, 0);
   if (e != cudaSuccess) return (int)e;
   cudaGraphNodeParams cp = {};
   cp.type = cudaGraphNodeTypeConditional;
@@ -142,17 +182,29 @@ extern "C" int etol_graph_loop_insert(void* stream, void* trip, void* flag,
   e = cudaGraphAddChildGraphNode(&step, body, nullptr, 0,
                                  static_cast<cudaGraph_t>(trip));
   if (e != cudaSuccess) return (int)e;
-  e = add_cond_kernel(&tail, body, &step, 1, handle, f, c, 1);
+  e = add_cond_kernel(&tail, body, &step, 1, handle, f, c, st, 1);
   if (e != cudaSuccess) return (int)e;
   return (int)wait_on(s, &loop);
 }
 
-// Load the condition kernel into the current context, so that no capture
-// pays for (or is refused) a lazy module load.
+// Launch the phase stamp on `stream` (captured where the stream captures):
+// buf (six unsigned 64-bit integers on the card) gains the time since its
+// last stamp in buf[1 + phase]; phase -1 only stamps.
+extern "C" int etol_phase_stamp(void* stream, void* buf, int phase) {
+  phase_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(buf), phase);
+  return (int)cudaGetLastError();
+}
+
+// Load the kernels into the current context, so that no capture pays for
+// (or is refused) a lazy module load.
 extern "C" int etol_graph_loop_load() {
   cudaFuncAttributes attr;
-  return (int)cudaFuncGetAttributes(
+  cudaError_t e = cudaFuncGetAttributes(
       &attr, reinterpret_cast<const void*>(loop_cond_kernel));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaFuncGetAttributes(
+      &attr, reinterpret_cast<const void*>(phase_stamp_kernel));
 }
 
 // The runtime this library was built against and the CUDA driver's

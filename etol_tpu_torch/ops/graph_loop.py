@@ -24,6 +24,14 @@ host-driven loop. :func:`plain` is the plain version, the host's
 Counts: ``LAUNCHES`` (the condition kernel's) and ``TRIPS`` (the trips
 run under it) are read from the loops' device counters by their owner
 (``solve/trip_graph.py``) and added with :func:`counted`.
+
+Card time: a loop inserted with a stamp slot (``SLOT`` int64 on the card)
+gains its own time, stamped from ``%globaltimer`` by the condition
+kernel when the loop starts and when its flag ends it, with its runs
+and trips (``SLOT_FIELDS``); no launch and no node is added.
+:func:`stamp` launches a one-thread kernel that adds the time since a
+buffer's last stamp to one of its phases (a traced trip's phases,
+``solve/trip_graph.py``).
 """
 from __future__ import annotations
 
@@ -46,6 +54,10 @@ BUILD_LOG = ""
 BUILD_SECONDS = None
 #: conditional nodes whose body may hold memsets and memcopies
 MIN_VERSION = 12040
+#: a loop's stamp slot: the start of its latest run (%globaltimer ns), its
+#: card ns, trips and runs summed over its runs
+SLOT_FIELDS = ("start", "ns", "trips", "runs")
+SLOT = len(SLOT_FIELDS)
 
 _SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(__file__)), "csrc", "graph_loop.cu"
@@ -63,7 +75,8 @@ def build() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         vp = ctypes.c_void_p
         for name, args in (
-                ("etol_graph_loop_insert", [vp, vp, vp, vp]),
+                ("etol_graph_loop_insert", [vp, vp, vp, vp, vp]),
+                ("etol_phase_stamp", [vp, vp, ctypes.c_int]),
                 ("etol_graph_loop_load", []),
                 ("etol_graph_loop_versions", [ctypes.POINTER(ctypes.c_int)]
                  * 2)):
@@ -89,15 +102,17 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"graph_loop: {what} failed: cudaError {rc}")
 
 
-def insert(trip: int, flag: torch.Tensor, counts: torch.Tensor) -> None:
+def insert(trip: int, flag: torch.Tensor, counts: torch.Tensor,
+           stamp: torch.Tensor = None) -> None:
     """Add to the current stream's capture, after the work captured so
     far, a loop: while ``flag`` (a 0-dim bool on the card, written by the
     trip) is true, the captured graph ``trip`` (a ``cudaGraph_t``,
     ``torch.cuda.CUDAGraph(keep_graph=True)``'s ``raw_cuda_graph()``,
     cloned in; the caller keeps its pool alive). The flag is tested
     before the first trip. ``counts`` (two int64 on the card) gains the
-    condition kernel's launches and the trips. The flag and the counts
-    must outlive the captured graph."""
+    condition kernel's launches and the trips; ``stamp`` (``SLOT`` int64
+    on the card, or None) this insertion's card time, runs and trips.
+    The flag, the counts and the slot must outlive the captured graph."""
     if flag.dtype != torch.bool or flag.dim() != 0 or \
             flag.device.type != "cuda":
         raise ValueError("the loop's flag must be a 0-dim bool on a card")
@@ -105,13 +120,33 @@ def insert(trip: int, flag: torch.Tensor, counts: torch.Tensor) -> None:
             counts.device != flag.device or not counts.is_contiguous():
         raise ValueError("the loop's counts must be two int64 beside the "
                          "flag")
+    if stamp is not None and (
+            stamp.dtype != torch.int64 or tuple(stamp.shape) != (SLOT,)
+            or stamp.device != flag.device or not stamp.is_contiguous()):
+        raise ValueError(f"a loop's stamp slot must be {SLOT} int64 beside "
+                         "the flag")
     if not torch.cuda.is_current_stream_capturing():
         raise RuntimeError("graph_loop: a loop is added to a capture; the "
                            "current stream is not capturing")
     stream = torch.cuda.current_stream().cuda_stream
-    _check(build().etol_graph_loop_insert(stream, trip, flag.data_ptr(),
-                                          counts.data_ptr()),
-           "adding the loop to the capture")
+    _check(build().etol_graph_loop_insert(
+        stream, trip, flag.data_ptr(), counts.data_ptr(),
+        None if stamp is None else stamp.data_ptr()),
+        "adding the loop to the capture")
+
+
+def stamp(buf: torch.Tensor, phase: int) -> None:
+    """On the current stream (captured where it captures): ``buf`` (an
+    int64 vector on the card, its first entry the last stamp) gains the
+    %globaltimer ns since its last stamp in ``buf[1 + phase]``, and is
+    stamped; ``phase`` -1 only stamps."""
+    if buf.dtype != torch.int64 or buf.device.type != "cuda" or \
+            not buf.is_contiguous() or not -1 <= phase < buf.numel() - 1:
+        raise ValueError(f"a phase stamp needs an int64 vector on a card "
+                         f"with a slot for phase {phase}")
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    _check(build().etol_phase_stamp(stream, buf.data_ptr(), phase),
+           "launching the phase stamp")
 
 
 def counted(launches: int, trips: int) -> None:

@@ -21,6 +21,12 @@ on one device and runs the native AL-SQP there.
   shifted previous solution. Under the default ``kkt_solver="kernel"``
   every Newton iteration of :meth:`solve` and :meth:`mpc_step` is one
   launch of the KKT kernel at a batch of one.
+* :meth:`solve`, :meth:`mpc_step` and :meth:`solve_batch` open a root
+  span each (``facade.solve``, ``facade.mpc_step``,
+  ``facade.solve_batch``) while the span recorder of
+  ``utils/profiling.py`` is on, with ``facade.prepare`` (the new start,
+  the tracks' and the warm start's shift), the solve's own spans and
+  ``facade.sync`` (the wait for the card) under it.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from .core.xml_io import load_configs as _load, save_configs as _save
 from .solve import al_sqp
 from .solve.al_sqp import SolveResult, SolverConfig
 from .transcribe.nlp import NLP
+from .utils import profiling
 
 
 def _warm_state(res: SolveResult) -> Tuple:
@@ -203,12 +210,13 @@ class TrajectoryOptimizer:
     def _solve_one(self, z0=None, lam0=None, rho0=None) -> SolveResult:
         """The unbatched solve, timed, its result kept as the scalar
         lifecycle's and as the next warm start."""
-        t0 = time.time()
+        t0 = time.perf_counter()
         self.result = al_sqp.solve(
             self.nlp, self.config, self.data, z0, lam0, rho0
         )
-        self._sync()
-        self._solve_time = time.time() - t0
+        with profiling.span("facade.sync"):
+            self._sync()
+        self._solve_time = time.perf_counter() - t0
         self._warm = _warm_state(self.result)
         return self.result
 
@@ -217,9 +225,10 @@ class TrajectoryOptimizer:
         solution and multipliers (MPC re-solve, §3.1 of SURVEY.md)."""
         if self.nlp is None:
             raise ValueError("setup() must run before solve()")
-        if warm and self._warm is not None:
-            return self._solve_one(*self._warm)
-        return self._solve_one()
+        with profiling.span("facade.solve", warm=warm):
+            if warm and self._warm is not None:
+                return self._solve_one(*self._warm)
+            return self._solve_one()
 
     def solve_exact(self, **kw):
         """Certified exact solve — the MILP-backend role (eGLPK/eGurobi
@@ -242,12 +251,12 @@ class TrajectoryOptimizer:
         from .solve.branch_bound import integer_mask
 
         icols = integer_mask(self.vgp)
-        t0 = time.time()
+        t0 = time.perf_counter()
         mres = side_branch.solve_exact(
             self.nlp, self.config, self.data,
             int_cols=icols if icols.any() else None, **kw
         )
-        self._solve_time = time.time() - t0
+        self._solve_time = time.perf_counter() - t0
         self.mip_result = mres
         dev = self.data.x0.device
         lam_def, lam_eq, mu = (a[0] for a in al_sqp.init_multipliers(
@@ -315,6 +324,33 @@ class TrajectoryOptimizer:
         """
         if self.nlp is None:
             raise ValueError("setup() must run before solve_batch()")
+        with profiling.span("facade.solve_batch"):
+            with profiling.span("facade.prepare"):
+                data, z0, lam0, rho0 = self._batch_inputs(x0, xf, data,
+                                                          warm)
+            if rescue is None:
+                rescue = z0 is None  # cold solves rescue; warm ticks skip
+            t0 = time.perf_counter()
+            if rescue:
+                res = al_sqp.solve_batched_rescue(
+                    self.nlp, self.config, data,
+                    rescue_lanes=rescue_lanes, rescue_cfg=rescue_cfg,
+                    z0=z0, lam0=lam0, rho0=rho0,
+                )
+            else:
+                res = al_sqp.solve_batched(
+                    self.nlp, self.config, data, z0, lam0, rho0
+                )
+            with profiling.span("facade.sync"):
+                self._sync()
+            self._solve_time = time.perf_counter() - t0
+        self._warm_batch = _warm_state(res)
+        self.batch_result = res
+        return res
+
+    def _batch_inputs(self, x0, xf, data, warm):
+        """:meth:`solve_batch`'s data on the device and its warm start
+        (z0, lam0, rho0; None for a cold start)."""
         if data is None:
             if x0 is None and xf is None:
                 raise ValueError("solve_batch needs x0/xf arrays or data")
@@ -336,24 +372,7 @@ class TrajectoryOptimizer:
                     f"{int(z0.shape[0])} != {B}; falling back to cold start"
                 )
                 z0 = lam0 = rho0 = None
-        if rescue is None:
-            rescue = z0 is None  # cold solves rescue; warm ticks skip
-        t0 = time.time()
-        if rescue:
-            res = al_sqp.solve_batched_rescue(
-                self.nlp, self.config, data,
-                rescue_lanes=rescue_lanes, rescue_cfg=rescue_cfg,
-                z0=z0, lam0=lam0, rho0=rho0,
-            )
-        else:
-            res = al_sqp.solve_batched(
-                self.nlp, self.config, data, z0, lam0, rho0
-            )
-        self._sync()
-        self._solve_time = time.time() - t0
-        self._warm_batch = _warm_state(res)
-        self.batch_result = res
-        return res
+        return data, z0, lam0, rho0
 
     def _tensor(self, a) -> torch.Tensor:
         """A host sequence, numpy array or tensor on the facade's device
@@ -400,7 +419,7 @@ class TrajectoryOptimizer:
         if n_samples is None and solve_time is None:
             # the reference's problem-derived default (eOMPL.cpp:241)
             solve_time = self.dims.nsteps * float(self.vgp.dt)
-        t0 = time.time()
+        t0 = time.perf_counter()
         X, U, info = planners.plan(
             getattr(self, "_planner", "SHOOTING"),
             self.nlp.dynamics,
@@ -413,7 +432,7 @@ class TrajectoryOptimizer:
         )
         z = self.nlp.pack(X, U)
         self._sync()
-        self._solve_time = time.time() - t0
+        self._solve_time = time.perf_counter() - t0
         at_goal = bool(
             torch.all(torch.abs(X[-1] - self.data.xf) <= self.data.xtol)
         )
@@ -525,18 +544,20 @@ class TrajectoryOptimizer:
         shifted warm start only makes sense on the shifted clock)."""
         if self.result is None:
             raise ValueError("solve() once before mpc_step()")
-        self.set_x0(x0_new)
-        if advance_time and self.dims.max_tracks > 0:
-            trk = self.data.tracks
-            self.data = dataclasses.replace(
-                self.data,
-                tracks=dataclasses.replace(
-                    trk, times=trk.times - float(self.vgp.dt)),
-            )
-        z, lam, rho = _warm_state(self.result)
-        Z = z.reshape(self.dims.nodes, -1)
-        Zs = torch.cat([Z[1:], Z[-1:]], dim=0)  # shift, hold last
-        return self._solve_one(Zs.reshape(-1), lam, rho)
+        with profiling.span("facade.mpc_step"):
+            with profiling.span("facade.prepare"):
+                self.set_x0(x0_new)
+                if advance_time and self.dims.max_tracks > 0:
+                    trk = self.data.tracks
+                    self.data = dataclasses.replace(
+                        self.data,
+                        tracks=dataclasses.replace(
+                            trk, times=trk.times - float(self.vgp.dt)),
+                    )
+                z, lam, rho = _warm_state(self.result)
+                Z = z.reshape(self.dims.nodes, -1)
+                Zs = torch.cat([Z[1:], Z[-1:]], dim=0)  # shift, hold last
+            return self._solve_one(Zs.reshape(-1), lam, rho)
 
     @property
     def last_solve_seconds(self) -> float:

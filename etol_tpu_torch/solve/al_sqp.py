@@ -63,6 +63,7 @@ from ..core.problem import VGPData, map_lanes, tree_map
 from ..core.types import Status
 from ..ops import bt_cuda, cyclic_reduction
 from ..transcribe.nlp import NLP
+from ..utils import profiling
 from . import btridiag, shooting
 
 # step-size grid of the parallel line search: alphas = 0.5**j
@@ -217,6 +218,10 @@ class _ALFuncs:
     Every public method takes and returns tensors with the lane axis
     first; the per-lane math (``_*_lane``) is written for one problem and
     mapped over lanes with ``torch.func.vmap``."""
+
+    #: ``stamp(phase)`` at a trip's phase boundaries (:data:`PHASES`), set
+    #: on a traced trip's copy by :mod:`.trip_graph`; None stamps nothing
+    stamp = None
 
     def __init__(self, nlp: NLP, cfg: SolverConfig, data: VGPData,
                  box=None, kkt_solve=None):
@@ -577,6 +582,7 @@ class _ALFuncs:
             self.pinned | (at_lb & (grad_ > 0.0)) | (at_ub & (grad_ < 0.0))
         )
         D, O = self.gn_blocks(Z, lam_def, lam_eq, mu, rho, free, lm, g)
+        _stamp(self, 1)
         p, bad = self.direction_from_blocks(D, O, free, grad_, rho, lm)
         return p, bad, D, O, free
 
@@ -603,7 +609,9 @@ class _ALFuncs:
             torch.sum(p * grad_, dim=(1, 2)) >= 0.0
         )
         step = s * rhs / ((1.0 + rho) * (1.0 + lm))[:, None, None]
-        return _sel(bad, step, p), bad
+        p = _sel(bad, step, p)
+        _stamp(self, 2)
+        return p, bad
 
     def chord_direction(self, Dst, Ost, free_st, dmp_st, grad_, rho, lm):
         """Direction from STORED blocks with the damping diagonal
@@ -676,6 +684,19 @@ _STATE = (
 # the stored KKT blocks of the chord steps (state only when
 # cfg.chord_steps > 0): D, O, the free mask and the damping they hold
 _CHORD_STATE = ("Dst", "Ost", "free_st", "dmp_st")
+#: a trip's phases, in order, as a traced capture stamps them on the card:
+#: the AL gradient and value with the stop tests, the Hessian blocks
+#: (``gn_blocks``; none in a chord step), the KKT solve and the
+#: direction, the line search's candidates and pick, the updates (the
+#: multipliers, the penalty, the freeze of inactive lanes, the flag)
+PHASES = ("gradient", "assembly", "kkt", "line_search", "update")
+
+
+def _stamp(F: "_ALFuncs", phase: int) -> None:
+    """Close ``phase`` (an index of :data:`PHASES`; -1 opens a trip) on
+    a traced trip's card clock; nothing elsewhere."""
+    if F.stamp is not None:
+        F.stamp(phase)
 
 
 def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
@@ -728,6 +749,7 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
     )
     done_prev = done
     done = done | done_now
+    _stamp(F, 0)
 
     # ---- Newton step for lanes still inside an inner round
     chord = {k: st[k] for k in _CHORD_STATE if k in st}
@@ -781,6 +803,7 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
     g_n = _sel(move, gc[lanes, sel], g)
     cost_n = torch.where(move, costc[lanes, sel], cost)
     val_new = torch.where(move, valc[lanes, sel], val)
+    _stamp(F, 3)
 
     # Levenberg adaptation: full steps trust the model more, backtracked
     # or failed steps damp harder
@@ -843,6 +866,7 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
     C = torch.where(u, torch.full_like(C, float("inf")), C)
     Q = torch.where(u, torch.ones_like(Q), Q)
     viol_ref = torch.where(u, viol, viol_ref)
+    _stamp(F, 4)
 
     return dict(
         Z=Znew, cd=cd_n, ce=ce_n, g=g_n, cost=cost_n, lam_def=lam_def,
@@ -1228,14 +1252,16 @@ def solve_multistart(
     dev, dtype = data.x0.device, data.x0.dtype
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    if deltas is None:
-        deltas = draw_deltas(n_starts, nlp.dims.nx, spread, generator, dev,
-                             dtype)
-    units = None
-    if shooting_samples > 0:
-        units = shooting.draw_units(shooting_samples, nlp.dims.nsteps,
-                                    data.u_lb.shape[-1], 0, 8, generator,
-                                    dev, dtype)
+    with profiling.span("solve.draws", device=str(generator.device)) as sp:
+        if deltas is None:
+            deltas = draw_deltas(n_starts, nlp.dims.nx, spread, generator,
+                                 dev, dtype)
+        units = None
+        if shooting_samples > 0:
+            units = shooting.draw_units(shooting_samples, nlp.dims.nsteps,
+                                        data.u_lb.shape[-1], 0, 8,
+                                        generator, dev, dtype)
+        sp.set(**profiling.sizes(deltas, units))
     cfg, budget = _budget(cfg, dev)
     res = trip_graph.run(_multistart_steps, (nlp, cfg),
                          tree_map(lambda a: a[None], data),
@@ -1320,13 +1346,15 @@ def solve_batched_rescue(
     dev, dtype = data.x0.device, data.x0.dtype
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    deltas = draw_deltas(n_rescue_starts, nlp.dims.nx, 0.4, generator, dev,
-                         dtype, lanes=M)
-    units = None
-    if shooting_samples > 0:
-        units = shooting.draw_units(shooting_samples, nlp.dims.nsteps,
-                                    data.u_lb.shape[-1], 0, 8, generator,
-                                    dev, dtype, lanes=M)
+    with profiling.span("solve.draws", device=str(generator.device)) as sp:
+        deltas = draw_deltas(n_rescue_starts, nlp.dims.nx, 0.4, generator,
+                             dev, dtype, lanes=M)
+        units = None
+        if shooting_samples > 0:
+            units = shooting.draw_units(shooting_samples, nlp.dims.nsteps,
+                                        data.u_lb.shape[-1], 0, 8,
+                                        generator, dev, dtype, lanes=M)
+        sp.set(**profiling.sizes(deltas, units))
     rescue_cfg, rescue_total = _budget(rescue_cfg or cfg, dev)
     cfg, budget = _budget(cfg, dev)
     return trip_graph.run(_rescue_steps, (nlp, cfg, rescue_cfg), data, z0,

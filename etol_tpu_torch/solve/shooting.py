@@ -34,6 +34,7 @@ from torch.func import vmap
 from ..core.problem import VGPData, map_lanes
 from ..transcribe import obstacles as obs_mod
 from ..transcribe.nlp import NLP
+from ..utils import profiling
 
 
 def rollout(dynamics: Callable, x0, U, dt, data, method: str = "rk2"):
@@ -229,9 +230,11 @@ def plan(
     dev, dtype = data.x0.device, data.x0.dtype
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    units = draw_units(n_samples, nsteps, data.u_lb.shape[-1], pulled,
-                       n_cand, generator, dev, dtype,
-                       lanes=data.x0.shape[0] if per_lane else None)
+    with profiling.span("solve.draws", device=str(generator.device)) as sp:
+        units = draw_units(n_samples, nsteps, data.u_lb.shape[-1], pulled,
+                           n_cand, generator, dev, dtype,
+                           lanes=data.x0.shape[0] if per_lane else None)
+        sp.set(**profiling.sizes(units))
     from . import trip_graph
 
     return trip_graph.program(plan_from_units, dynamics, data, *units,

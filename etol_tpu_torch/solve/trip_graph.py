@@ -70,6 +70,22 @@ tallies (``bt_cuda``'s and ``cyclic_reduction``'s counters add a graph's
 recorded launches for each trip) and to ``graph_loop``'s counts. Call it
 before reading a count; the cache calls it before it drops an entry.
 
+Card time. Every insertion of a loop has a stamp slot of its own (a
+program's loops one slot each by their position in its body, a loop
+alone its entry's), where the condition kernel stamps the loop's card
+time, runs and trips (``graph_loop.SLOT_FIELDS``); :func:`settle` reads
+the slots in the same read and keeps what they gained as ``LAST_READ``.
+While the span recorder (``utils/profiling.py``) is on, the trips
+captured (and the programs holding them) are traced ones, of keys of
+their own: a one-thread stamp
+kernel closes each phase of a trip (``al_sqp.PHASES``) on the card, into
+a buffer of the trip's entry that :func:`settle` reads too; and
+:func:`program` opens spans (``program`` with ``program.key``,
+``program.first_use``, ``program.copy_in``, ``program.launch`` with its
+CUDA event pair, ``program.clone_out``), a loop launched alone one
+(``loop``), and :func:`settle` one (``settle``). Off, the captured graphs
+are exactly the untraced ones.
+
 The solves. The JAX package jits each of its solves whole: ``solve``,
 ``solve_batched``, ``solve_multistart``, ``solve_batched_rescue`` and
 ``solve_batched_staged`` are each one program with no host decision
@@ -138,8 +154,9 @@ import torch
 from ..core.problem import (tree_flatten, tree_flatten_with_paths,
                             tree_map, tree_unflatten)
 from ..ops import bt_cuda, cyclic_reduction, graph_loop
-from .al_sqp import (SolverConfig, _active, _ALFuncs, _exponents,
-                     _run_steps, _trip)
+from ..utils import profiling
+from .al_sqp import (PHASES, SolverConfig, _active, _ALFuncs, _exponents,
+                     _run_steps, _stamp, _trip)
 
 #: the routes :func:`override` forces
 ROUTES = ("eager", "static", "replay")
@@ -158,15 +175,25 @@ POOL_SHARE = 0.25
 #: loop (a solve's loop, a staged solve's program)
 COUNTS = dict(captures=0, capture_s=0.0, trips=0, idle_trips=0,
               eager_trips=0, programs=0, loop_graphs=0)
+#: what the latest :func:`settle` that found loops to read gained:
+#: ``loops``, one dict an insertion that ran (``body``: the program's
+#: body, or "loop" for a loop alone; ``position``: its index among the
+#: body's loops; ``lanes``; ``runs``, ``trips`` and card ``ns``), and
+#: ``phases``, one dict a traced trip's entry (``lanes``, ``trips`` and
+#: card ``ns`` by phase of ``al_sqp.PHASES``)
+LAST_READ = dict(loops=[], phases=[])
 
 _CACHE: "collections.OrderedDict[tuple, _Captured]" = (
     collections.OrderedDict())
 _OVERRIDE = {}
-# the entries whose device loops ran since their counters were last read
-_UNREAD: "dict[_Entry, None]" = {}
+# the entries and programs whose device loops ran since their counters
+# and stamps were last read
+_UNREAD: "dict[_Captured, None]" = {}
 # while a program runs its body for the first time or is captured: the
-# entries of the loops it reaches
+# entries of the loops it reaches, one a loop call
 _PARTS = None
+# while a program is captured: its loops' stamp slots, by position
+_SLOTS = None
 
 
 @contextlib.contextmanager
@@ -190,18 +217,29 @@ def override(route: str | None = None, lag: int | None = None):
 
 
 def settle() -> None:
-    """Read the device counters of the loops launched since the last read
-    and add what they gained to COUNTS["trips"], the launch tallies and
-    ``graph_loop``'s counts: before a count is read."""
-    global _UNREAD
-    entries, _UNREAD = list(_UNREAD), {}
-    for e in entries:
-        launches, trips = e.counts.tolist()
-        gained = launches - e.read[0], trips - e.read[1]
-        e.read = (launches, trips)
-        COUNTS["trips"] += gained[1]
-        e._replayed(gained[1])
-        graph_loop.counted(*gained)
+    """Read, in one read a device, the device counters and stamps of the
+    loops launched since the last read; add what the counters gained to
+    COUNTS["trips"], the launch tallies and ``graph_loop``'s counts, and
+    keep what the stamps gained as LAST_READ: before a count is read."""
+    global _UNREAD, LAST_READ
+    unread, _UNREAD = list(_UNREAD), {}
+    if not unread:
+        return
+    with profiling.span("settle"):
+        by_device = {}
+        for c in unread:
+            by_device.setdefault(c.device, []).append(c)
+        values = {}
+        for group in by_device.values():
+            flat = torch.cat([t.reshape(-1) for c in group
+                              for t in c.stamps()]).tolist()
+            for c in group:
+                n = sum(t.numel() for t in c.stamps())
+                values[c], flat = flat[:n], flat[n:]
+        read = dict(loops=[], phases=[])
+        for c in unread:
+            c._settle(values[c], read)
+        LAST_READ = read
 
 
 def _held() -> dict:
@@ -274,6 +312,10 @@ class _Solve:
     steps: object
     static: tuple
 
+    @property
+    def __name__(self) -> str:
+        return self.steps.__name__
+
     def __call__(self, *args):
         return _run_steps(self.steps(*self.static, *args), loop)
 
@@ -309,11 +351,17 @@ def program(body, *args, **kwargs):
             "plan_from_units directly")
     if route_of(device) == "eager":
         return body(*args, **kwargs)
-    key = (body, str(device), _spec(tree))
-    entry = _lookup(key, lambda: _Program(body, tree))
-    out = entry.run(tree)
-    _evict(device)
+    with profiling.span("program", body=_name(body)):
+        with profiling.span("program.key"):
+            key = (body, str(device), _spec(tree), profiling.enabled())
+            entry = _lookup(key, lambda: _Program(body, tree))
+        out = entry.run(tree)
+        _evict(device)
     return out
+
+
+def _name(body) -> str:
+    return getattr(body, "__name__", type(body).__name__)
 
 
 def _spec(tree) -> tuple:
@@ -344,6 +392,7 @@ def _key(F: _ALFuncs, cfg: SolverConfig) -> tuple:
         str(F.lb.device), type(F.data),
         tuple((path, tuple(a.shape), a.dtype)
               for path, a in tree_flatten_with_paths(F.data)),
+        profiling.enabled(),
     )
 
 
@@ -386,6 +435,10 @@ class _Captured:
     static_bytes = 0
     #: the entries of the loops a program's graph runs
     parts = ()
+    #: the stamp slots of the loops inserted into its graph, [n, SLOT]
+    slots = None
+    #: the values of :meth:`stamps` at the last read
+    stamps_read = None
 
     def _capture(self, keep_graph: bool = False):
         """Capture one :meth:`step` and return what it returned, the
@@ -409,6 +462,27 @@ class _Captured:
         bt_cuda.replayed(self.tally, n)
         cyclic_reduction.replayed(self.cr_tally, n)
 
+    def stamps(self) -> list:
+        """The device tensors :func:`settle` reads: the loops' slots."""
+        return [] if self.slots is None else [self.slots]
+
+    def _gained(self, values: list) -> list:
+        """What ``values`` (the flat read of :meth:`stamps`) gained since
+        the last read; remembers them."""
+        old = self.stamps_read or [0] * len(values)
+        self.stamps_read = values
+        return [v - o for v, o in zip(values, old)]
+
+    def _loops(self, gained: list, body: str, lanes: list, read) -> None:
+        """Add the loops' records of ``gained`` slots to ``read``."""
+        S = graph_loop.SLOT
+        for i, B in enumerate(lanes):
+            slot = dict(zip(graph_loop.SLOT_FIELDS, gained[S * i:S * i + S]))
+            if slot["runs"] > 0:
+                read["loops"].append(dict(
+                    body=body, position=i, lanes=B, runs=slot["runs"],
+                    trips=slot["trips"], ns=slot["ns"]))
+
 
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
@@ -417,6 +491,10 @@ def _nbytes(tensors) -> int:
 class _Program(_Captured):
     """One program key's argument buffers and, on a CUDA device, the
     graph of its body and the graph's outputs."""
+
+    #: the entry of each loop call of the body, in order (its position)
+    loops = ()
+    out_bytes = 0
 
     def __init__(self, body, tree):
         self.body = body
@@ -428,6 +506,11 @@ class _Program(_Captured):
             next(it) if isinstance(a, torch.Tensor) else a for a in leaves])
         self.out = None
         self.static_bytes = _nbytes(self.buffers)
+        self.device = self.buffers[0].device
+
+    def _settle(self, values: list, read) -> None:
+        self._loops(self._gained(values), _name(self.body),
+                    [e.F.lb.shape[0] for e in self.loops], read)
 
     def step(self):
         """The body on the buffers: what the graph captures."""
@@ -440,35 +523,54 @@ class _Program(_Captured):
         saved, _PARTS = _PARTS, []
         try:
             out = run()
+            self.loops = tuple(_PARTS)
             self.parts = tuple(dict.fromkeys(_PARTS))
         finally:
             _PARTS = saved
         return out
 
+    def _capture_loops(self):
+        """Capture the body, each loop inserted with its own stamp slot."""
+        global _SLOTS
+        self.slots = torch.zeros((len(self.loops), graph_loop.SLOT),
+                                 dtype=torch.int64, device=self.device)
+        saved, _SLOTS = _SLOTS, self.slots
+        try:
+            return self._capture()
+        finally:
+            _SLOTS = saved
+
     def run(self, tree):
         """Copy a call's tensors in, run the body (on a CUDA device the
         graph, captured after the key's first, eager run) and return its
         result cloned out of the buffers."""
-        for b, a in zip(self.buffers, (a for a in tree_flatten(tree)
-                                       if isinstance(a, torch.Tensor))):
-            b.copy_(a)
+        with profiling.span("program.copy_in", bytes=self.static_bytes):
+            for b, a in zip(self.buffers, (a for a in tree_flatten(tree)
+                                           if isinstance(a, torch.Tensor))):
+                b.copy_(a)
         COUNTS["programs"] += 1
-        dev = self.buffers[0].device
-        if dev.type != "cuda":
-            out = self._collect(self.step)
-        elif self.graph is None:
-            with torch.cuda.device(dev):
+        dev = self.device
+        if dev.type != "cuda":  # the body itself, every call
+            with profiling.span("program.launch"):
                 out = self._collect(self.step)
-                self.out = self._collect(self._capture)
+            self.out_bytes = self.out_bytes or _nbytes(tree_flatten(out))
+        elif self.graph is None:
+            with profiling.span("program.first_use"), torch.cuda.device(dev):
+                out = self._collect(self.step)
+                self.out = self._collect(self._capture_loops)
+                self.out_bytes = _nbytes(tree_flatten(self.out))
         else:
-            with torch.cuda.device(dev):
+            with profiling.span("program.launch", card=dev), \
+                    torch.cuda.device(dev):
                 self.graph.replay()
             self._replayed(1)
             if self.parts:
                 COUNTS["loop_graphs"] += 1
                 _UNREAD.update(dict.fromkeys(self.parts))
+                _UNREAD[self] = None
             out = self.out
-        return tree_unflatten(out, [t.clone() for t in tree_flatten(out)])
+        with profiling.span("program.clone_out", bytes=self.out_bytes):
+            return tree_unflatten(out, [t.clone() for t in tree_flatten(out)])
 
 
 class _Entry(_Captured):
@@ -497,6 +599,17 @@ class _Entry(_Captured):
         # the trips) and their values at the last read
         self.counts = torch.zeros((2,), dtype=torch.int64, device=dev)
         self.read = (0, 0)
+        # the stamp slot of the loop alone (or inserted outside a
+        # program); a traced trip's phase buffer (the last stamp, then
+        # the ns of each phase), which its stamps write
+        self.device = dev
+        self.slot = torch.zeros((graph_loop.SLOT,), dtype=torch.int64,
+                                device=dev)
+        self.phases = None
+        if profiling.enabled() and dev.type == "cuda":
+            self.phases = torch.zeros((1 + len(PHASES),), dtype=torch.int64,
+                                      device=dev)
+            self.F.stamp = functools.partial(graph_loop.stamp, self.phases)
         self.static_bytes = _nbytes(self._tensors())
 
     def _tensors(self):
@@ -504,8 +617,28 @@ class _Entry(_Captured):
         yield from (t for t in vars(self.F).values()
                     if isinstance(t, torch.Tensor))
         yield from self.st.values()
-        yield from (self.exps, self.max_total, self.active, self.flag,
-                    self.counts)
+        yield from (self.exps, self.max_total, self.active, self.flag)
+        yield from self.stamps()
+
+    def stamps(self) -> list:
+        """The device tensors :func:`settle` reads: the counters, the
+        slot and a traced trip's phases."""
+        return [self.counts, self.slot] + (
+            [] if self.phases is None else [self.phases])
+
+    def _settle(self, values: list, read) -> None:
+        launches, trips = values[:2]
+        gained = launches - self.read[0], trips - self.read[1]
+        self.read = (launches, trips)
+        COUNTS["trips"] += gained[1]
+        self._replayed(gained[1])
+        graph_loop.counted(*gained)
+        rest, S = self._gained(values[2:]), graph_loop.SLOT
+        B = self.F.lb.shape[0]
+        self._loops(rest[:S], "loop", [B], read)
+        if self.phases is not None and any(rest[S + 1:]):
+            read["phases"].append(dict(lanes=B, trips=gained[1],
+                                       ns=dict(zip(PHASES, rest[S + 1:]))))
 
     def load(self, F: _ALFuncs, st: dict, max_total) -> None:
         """Copy a call's data, derived tensors, first state and budget
@@ -531,11 +664,13 @@ class _Entry(_Captured):
 
     def step(self) -> None:
         """One trip in place: what the graph captures. It reads nothing
-        on the host."""
+        on the host. A traced trip stamps its phases."""
+        _stamp(self.F, -1)
         new = _trip(self.F, self.cfg, self.st, self.exps, self.active)
         for k, b in self.st.items():
             b.copy_(new[k])
         self._mark()
+        _stamp(self.F, len(PHASES) - 1)
 
     def _warm(self) -> None:
         """One eager trip on a side stream: it builds what the trip
@@ -569,17 +704,21 @@ class _Entry(_Captured):
                 if self.graph is None:
                     raise RuntimeError("a loop's first use runs before a "
                                        "capture that holds it")
+                # a program's slot of this loop's position, else its own
+                slot = (self.slot if _SLOTS is None
+                        else _SLOTS[len(_PARTS) - 1])
                 graph_loop.insert(self.graph.raw_cuda_graph(), self.flag,
-                                  self.counts)
+                                  self.counts, slot)
                 return
-            if self.graph is None:
-                self._first_use()
-            if self.looped is None:
-                self.looped = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.looped):
-                    graph_loop.insert(self.graph.raw_cuda_graph(),
-                                      self.flag, self.counts)
-            self.looped.replay()
+            with profiling.span("loop", card=dev, lanes=self.F.lb.shape[0]):
+                if self.graph is None:
+                    self._first_use()
+                if self.looped is None:
+                    self.looped = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(self.looped):
+                        graph_loop.insert(self.graph.raw_cuda_graph(),
+                                          self.flag, self.counts, self.slot)
+                self.looped.replay()
         COUNTS["loop_graphs"] += 1
         _UNREAD[self] = None
 
