@@ -10,10 +10,11 @@ limit; any failure raises, so the script exits non-zero and prints no
 result line:
 
 1. device  — CUDA must be available; the card's name and power limit;
-2. build   — compile the KKT kernel (``etol_tpu_torch/csrc/bt_solve.cu``)
-             and the device loop (``etol_tpu_torch/csrc/graph_loop.cu``)
-             with nvcc from this checkout, one nvcc each at once, and
-             load them;
+2. build   — compile the KKT kernel (``etol_tpu_torch/csrc/bt_solve.cu``),
+             the device loop (``etol_tpu_torch/csrc/graph_loop.cu``) and
+             the step coupling's kernel
+             (``etol_tpu_torch/csrc/hs_coupling.cu``) with nvcc from this
+             checkout, one nvcc each at once, and load them;
 3. kernel  — the two kernels of the source (the shared-memory one the
              paths launch wherever a lane's factor fits a block, and the
              stream one they launch for longer horizons) against the
@@ -34,11 +35,25 @@ result line:
              inputs (the kernels as replays of a CUDA graph of
              launches), beside the bound from the shapes and a dense
              ``torch.linalg.solve`` of the assembled systems as the
-             library yardstick where that batch is under 8 GB;
+             library yardstick where that batch is under 8 GB; then the
+             Hermite–Simpson step coupling's kernel (``ops/hs_coupling``)
+             against its plain version (``_ALFuncs._pair_coupling``) at
+             every one of those shapes of the unicycle's width (uas_2d
+             at K - 1 steps; a trip that assembles launches the KKT
+             kernel at its own shape), under the exact curvature and
+             Gauss-Newton alone, Z drawn inside the bounds, the defect
+             multipliers within +-HS_LAM and rho log-uniform up to
+             rho_max: max |diff| / max |plain| within HS_TOL on Dc and O;
+             a later phase fails if it launched this kernel at a shape
+             not checked here; the kernel and the plain version timed
+             at the main path's shapes (each a replay of a CUDA graph),
+             beside the kernel's bound, and the non-view aten ops and
+             hand-written launches of one uas_2d trip on each route;
 4. main    — the port's main path on the default device: ``uas_2d`` N=50,
              B=2048, shooting seeds, the staged cold solve, the obstacle
              audit, and the warm fleet re-solve on x0 + 0.01; the kernel's
-             launch count, by batch size, over exactly that run;
+             launch count, by batch size, over exactly that run, and the
+             step coupling's kernel's, one a trip at each shape;
 4b. graph  — the bench's seeds at B=2048 (``shooting.plan_guess``,
              256 walks and 16 pulled rollouts, a program of
              ``trip_graph``) eager, on the graph (its key's first use:
@@ -386,10 +401,26 @@ LOOP_COND_BYTES = 1 + 3 * 16
 SEEDED = ("RRT", "SST", "PDST")
 FACADE_PLAN_SECONDS = 4.0
 
+# the step coupling's kernel: the limit on max |kernel - plain| over max
+# |plain| of Dc and of O (float32 in another order of operations: 8e-8 on
+# the host build of its arithmetic, tests/test_torch_hs_coupling.py), the
+# solver's hessians it is checked under, the defect multipliers' range and
+# rho's (log-uniform from RHO_LO to SolverConfig.rho_max); the (K, w, B)
+# it was held at, None until the kernel phase has run
+HS_TOL = 1e-5
+HS_HESSIANS = ("defect", "gn")
+HS_LAM, HS_RHO_LO = 50.0, 10.0
+HS_CHECKED = None
+# timed: the kernel in a graph of HS_INNER launches, the plain version of
+# HS_PLAIN_INNER calls; the batch of the per-trip op count
+HS_INNER, HS_PLAIN_INNER, HS_COUNT_B = 10, 2, 64
+
 CARD = None
 # the solver loop's module (etol_tpu_torch.solve.trip_graph) and the
 # device loop's (etol_tpu_torch.ops.graph_loop), once built
 TG = GL = None
+# the step coupling's kernel's module (etol_tpu_torch.ops.hs_coupling)
+HS = None
 # the phases whose replay route runs idle trips past a stop (a run of
 # any other phase with one fails: every loop there is the device loop)
 REPLAY_PHASES = ("loop",)
@@ -563,7 +594,9 @@ def path_shapes(bench_scaling):
 
 def assert_checked(path, launches_by):
     """Fail if ``path`` launched the kernel at a (K, w, B) that the kernel
-    phase did not hold against the plain version."""
+    phase did not hold against the plain version, or the step coupling's
+    kernel at one (since the process started) that it did not hold
+    against ``_pair_coupling``."""
     if CHECKED is None:
         return
     missed = sorted({key[1:] for key in launches_by} - CHECKED)
@@ -571,6 +604,11 @@ def assert_checked(path, launches_by):
         raise AssertionError(
             f"{path}: kernel launches at {missed}, shapes the kernel phase "
             "did not compare with the plain version")
+    missed = sorted(set(HS.LAUNCHES_BY) - HS_CHECKED)
+    if missed:
+        raise AssertionError(
+            f"{path}: step coupling launches at {missed}, shapes the "
+            "kernel phase did not compare with _pair_coupling")
 
 
 def takes(bt_cuda, variant, K, w, B):
@@ -749,6 +787,168 @@ def dense(torch, D, O):
     H[:, k[:-1], :, k[1:], :] = O.permute(1, 0, 2, 3)
     H[:, k[1:], :, k[:-1], :] = O.permute(1, 0, 3, 2)
     return H.reshape(B, K * w, K * w)
+
+
+def hs_batch(K, B, hessian="defect"):
+    """The solver's building blocks for uas_2d at K - 1 steps, its data
+    tiled over B lanes on the card, under ``hessian``."""
+    from etol_tpu_torch.core import problem
+    from etol_tpu_torch.models import problems
+    from etol_tpu_torch.solve import al_sqp
+
+    vgp, nlp = problems.uas_2d(nsteps=K - 1)
+    data, _ = vgp.to_device()
+    return al_sqp._ALFuncs(nlp, al_sqp.SolverConfig(hessian=hessian),
+                           problem.batch_tile(data, B))
+
+
+def hs_inputs(torch, F, seed):
+    """(Z, lam_def, rho) for F's batch from ``seed``: Z uniform inside the
+    bounds, the multipliers uniform within +-HS_LAM, rho log-uniform from
+    HS_RHO_LO to rho_max."""
+    import math
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B, K, w = F.lb.shape
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    Z = F.lb + u(B, K, w) * (F.ub - F.lb)
+    lam = HS_LAM * (2.0 * u(B, K - 1, F.cscale.shape[1]) - 1.0)
+    lo, hi = math.log(HS_RHO_LO), math.log(F.cfg.rho_max)
+    return Z, lam, torch.exp(lo + (hi - lo) * u(B))
+
+
+def hs_kernel(F, Z, lam, rho):
+    return HS.coupling(F.nlp.dynamics, Z, lam, rho, F.cscale.contiguous(),
+                       F.data.dt.contiguous(), exact=F.cfg.hessian != "gn")
+
+
+def hs_plain(F, Z, lam, rho):
+    return F._lanes(F._pair_coupling, F.cscale, Z, lam, rho)
+
+
+def check_hs(torch, shapes):
+    """Phase 3, the step coupling's kernel: against ``_pair_coupling`` at
+    each of ``shapes`` of the unicycle's width under HS_HESSIANS, then
+    timed beside the plain version at the main path's shapes and B=1, and
+    one trip's ops counted on each route; returns (the largest max
+    |diff| / max |plain|, times by shape, the trip's counts)."""
+    global HS_CHECKED
+    HS_CHECKED = set()
+    from etol_tpu_torch.models import dynamics
+
+    model = HS.models()[dynamics.unicycle]
+    w = model.nx + model.nu
+    worst = 0.0
+    for i, (K, w_, B) in enumerate(
+            s for s in shapes if s[1] == w and s[0] >= 2):
+        errs = {}
+        for hessian in HS_HESSIANS:
+            F = hs_batch(K, B, hessian)
+            if F.coupling != "kernel":
+                raise AssertionError(f"uas_2d at {(K, w, B)} on the card "
+                                     "took the plain coupling route")
+            Z, lam, rho = hs_inputs(torch, F, seed=K + B + i)
+            ref = hs_plain(F, Z, lam, rho)
+            got = hs_kernel(F, Z, lam, rho)
+            torch.cuda.synchronize()
+            errs[hessian] = [float((g - r).abs().max() / r.abs().max())
+                             for g, r in zip(got, ref)]
+            del F, ref, got
+        say("kernel", f"hs_coupling K={K} w={w} B={B}: max|diff| / "
+                      "max|plain| (Dc, O) " + ", ".join(
+                          f"{h} {e[0]:.2e} {e[1]:.2e}"
+                          for h, e in errs.items())
+                      + f" (limit {HS_TOL:.0e})")
+        top = max(max(e) for e in errs.values())
+        if not top <= HS_TOL:
+            raise AssertionError(
+                f"hs_coupling disagrees with _pair_coupling at "
+                f"{(K, w, B)}: {errs}")
+        worst = max(worst, top)
+        HS_CHECKED.add((K, w, B))
+    torch.cuda.empty_cache()
+
+    times = {}
+    for K, w_, B in MAIN_SHAPES + (B1_SHAPE,):
+        F = hs_batch(K, B)
+        sets = [hs_inputs(torch, F, seed=B + j) for j in range(3)]
+        n = len(sets)
+        runs = []
+        # in turns: kernel, plain, plain, kernel; each a CUDA graph
+        for side in ("kernel", "plain", "plain", "kernel"):
+            fn = hs_kernel if side == "kernel" else hs_plain
+            runs.append((side, graph_ms(
+                torch, lambda i, f=fn: f(F, *sets[i % n]),
+                reps=20 if side == "kernel" else 5,
+                inner=HS_INNER if side == "kernel" else HS_PLAIN_INNER)))
+        flops, nbytes = HS.cost(K, w, model.nx, B)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / FP32_FLOPS * 1e3
+        t = {side: sum(ms for s_, ms in runs if s_ == side) / 2
+             for side in ("kernel", "plain")}
+        t.update(bound=max(t_bytes, t_flops),
+                 bound_by="bytes" if t_bytes >= t_flops else "operations",
+                 bytes=nbytes, flops=flops)
+        say("kernel", f"hs_coupling K={K} w={w} B={B}: "
+                      + ", ".join(f"{side} {ms:.4f} ms" for side, ms in runs)
+                      + f" (CUDA events: median of the replays of a graph "
+                        f"of {HS_INNER} launches, 20 replays; plain "
+                        f"_pair_coupling a graph of {HS_PLAIN_INNER} "
+                        f"calls, 5 replays); bound {t['bound']:.6f} ms by "
+                        f"{t['bound_by']} ({nbytes} B, {flops} flop), "
+                        f"{100 * t['bound'] / t['kernel']:.1f}% of it")
+        times[(K, w, B)] = t
+        del F, sets
+        torch.cuda.empty_cache()
+    return worst, times, hs_trip_ops(torch)
+
+
+def hs_trip_ops(torch):
+    """One trip of the bench's problem and config (uas_2d N=50,
+    HS_COUNT_B lanes, cold start) on each coupling route: the non-view
+    aten ops it dispatches and the hand-written kernels it launches."""
+    import copy
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from etol_tpu_torch import bench_harness
+    from etol_tpu_torch.core.problem import map_lanes
+    from etol_tpu_torch.ops import bt_cuda
+    from etol_tpu_torch.solve import al_sqp
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    nlp, cfg, _, data, _ = bench_harness.prepare(HS_COUNT_B, MAIN_NSTEPS,
+                                                 seed=1)
+    F = al_sqp._ALFuncs(nlp, cfg, data)
+    st = al_sqp._start(F, cfg, map_lanes(nlp.initial_guess, data),
+                       al_sqp.init_multipliers(nlp, data))
+    exps = al_sqp._exponents(cfg, F.dtype, F.lb.device)
+    active = al_sqp._active(cfg, st, cfg.max_outer * cfg.max_inner)
+    out = {}
+    for route in ("plain", "kernel"):
+        G = copy.copy(F)
+        G.coupling = route
+        before = HS.LAUNCHES, bt_cuda.LAUNCHES
+        with Count() as count:
+            al_sqp._trip(G, cfg, st, exps, active)
+        torch.cuda.synchronize()
+        hs, kkt = HS.LAUNCHES - before[0], bt_cuda.LAUNCHES - before[1]
+        out[route] = dict(aten_ops=count.ops, hs_launches=hs,
+                          kkt_launches=kkt, launches=count.ops + hs + kkt)
+        say("kernel", f"one uas_2d trip at B={HS_COUNT_B}, coupling "
+                      f"{route}: {count.ops} non-view aten ops, {hs} step "
+                      f"coupling and {kkt} KKT kernel launches")
+    return out
 
 
 def host_ms(torch, fn, reps, warm=True):
@@ -2700,18 +2900,21 @@ def main(phases=PHASES):
     from etol_tpu_torch.ops import graph_loop
     from etol_tpu_torch.solve import trip_graph
 
-    global TG, GL
-    TG, GL = trip_graph, graph_loop
-    # both sources at once, one nvcc each
+    from etol_tpu_torch.ops import hs_coupling
+
+    global TG, GL, HS
+    TG, GL, HS = trip_graph, graph_loop, hs_coupling
+    # the three sources at once, one nvcc each
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(bt_cuda.build), pool.submit(graph_loop.build)]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(bt_cuda.build), pool.submit(graph_loop.build),
+                  pool.submit(hs_coupling.build)]
         for done in builds:
             done.result()
-    say("build", f"bt_solve.cu and graph_loop.cu built and loaded in "
-                 f"{time.perf_counter() - t0:.2f} s (nvcc "
-                 f"{bt_cuda.BUILD_SECONDS} s and "
-                 f"{graph_loop.BUILD_SECONDS} s)")
+    say("build", f"bt_solve.cu, graph_loop.cu and hs_coupling.cu built and "
+                 f"loaded in {time.perf_counter() - t0:.2f} s (nvcc "
+                 f"{bt_cuda.BUILD_SECONDS} s, {graph_loop.BUILD_SECONDS} s "
+                 f"and {hs_coupling.BUILD_SECONDS} s)")
     nvcc = subprocess.run([bt_cuda._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     versions = graph_loop.VERSIONS
@@ -2730,12 +2933,23 @@ def main(phases=PHASES):
         elif entry and ("registers" in line or "spill" in line):
             info = line.replace("ptxas info    :", "").strip()
             say("build", f"{entry}: {info}")
+    entry = None
+    for line in hs_coupling.BUILD_LOG.splitlines():
+        m = re.search(r"hs_coupling_kernelI\w*?Lb(\d)E", line)
+        if m and "Compiling entry function" in line:
+            entry = f"hs_coupling exact={m.group(1)}"
+        elif entry and ("registers" in line or "spill" in line):
+            info = line.replace("ptxas info    :", "").strip()
+            say("build", f"{entry}: {info}")
     clock.lap("build")
 
     # 3. the kernels vs plain, and their times
     if "kernel" in phases:
-        max_abs_err, times = check_kernel(
-            torch, bt_cuda, btridiag, path_shapes(bench_scaling))
+        shapes = path_shapes(bench_scaling)
+        max_abs_err, times = check_kernel(torch, bt_cuda, btridiag, shapes)
+        hs_err, hs_times, hs_ops = check_hs(
+            torch, tuple(dict.fromkeys(tuple(shapes) + LONG_SHAPES
+                                       + RAGGED_SHAPES)))
         clock.lap("kernel")
 
     # 4. main path, on the default device
@@ -2745,15 +2959,26 @@ def main(phases=PHASES):
         bt_cuda.LAUNCHES_BY.clear()
         c0 = (TG.COUNTS["programs"], TG.COUNTS["trips"], GL.LAUNCHES,
               GL.TRIPS)
+        hs0 = HS.LAUNCHES, dict(HS.LAUNCHES_BY)
         out = bench_harness.main_path(MAIN_B, MAIN_NSTEPS)
         TG.settle()
         launches = bt_cuda.LAUNCHES
         launches_by = dict(bt_cuda.LAUNCHES_BY)
+        main_hs = {k: n - hs0[1].get(k, 0)
+                   for k, n in HS.LAUNCHES_BY.items()
+                   if n > hs0[1].get(k, 0)}
         main_loop = dict(programs=TG.COUNTS["programs"] - c0[0],
                          trips=TG.COUNTS["trips"] - c0[1],
                          cond_launches=GL.LAUNCHES - c0[2],
                          loop_trips=GL.TRIPS - c0[3])
         check_main(torch, out, launches, launches_by, main_loop)
+        say("main", f"hs_coupling launches during the main path: "
+                    f"{HS.LAUNCHES - hs0[0]}; by (K, w, batch): "
+                    f"{sorted(main_hs.items(), key=lambda kv: -kv[0][2])}")
+        if main_hs != {k[1:]: n for k, n in launches_by.items()}:
+            raise AssertionError(
+                f"the main path launched the step coupling {main_hs}, the "
+                f"KKT kernel {launches_by}: one of each a trip")
         clock.lap("main")
 
     # 4b. the bench's seeds on their program's graph
@@ -2834,7 +3059,15 @@ def main(phases=PHASES):
     # 10. the library's entry point; its JSON line goes out before the
     # last two
     if "facade" in phases:
+        hs0 = HS.LAUNCHES
         facade = check_facade(torch, bt_cuda, cyclic_reduction)
+        TG.settle()
+        if HS.LAUNCHES != hs0:
+            raise AssertionError(
+                f"the facade's ocp_2d_ex1 and mip_2d_ex1 solves launched the "
+                f"step coupling {HS.LAUNCHES - hs0} times: their schemes "
+                "take the plain routes")
+        say("facade", "no step coupling launch (trapezoidal and euler)")
         print(json.dumps({"phase": "facade", "card": CARD, **facade}),
               flush=True)
         clock.lap("facade")
@@ -2973,6 +3206,24 @@ def main(phases=PHASES):
             "graph_launches", "wall_s") if k in side}
             for name, side in loop[kind].items()}
             for kind in ("phase1", "staged", "mpc")},
+    }, {
+        "name": "hs_coupling",
+        "route": "cuda",
+        "source": "etol_tpu_torch/csrc/hs_coupling.cu",
+        # no TPU kernel: the JAX package leaves the step coupling of its
+        # block assembly to XLA
+        "replaces": None,
+        "launches": sum(main_hs.values()),
+        "launches_by_batch": {str(k[2]): n for k, n in sorted(
+            main_hs.items(), key=lambda kv: -kv[0][2])},
+        "max_rel_err": hs_err,
+        "ms": hs_times[(51, 5, MAIN_B)]["kernel"],
+        "plain_ms": hs_times[(51, 5, MAIN_B)]["plain"],
+        "bound_ms": hs_times[(51, 5, MAIN_B)]["bound"],
+        "bound_by": hs_times[(51, 5, MAIN_B)]["bound_by"],
+        "library_ms": None,
+        "by_shape": {shape_key(shape): t for shape, t in hs_times.items()},
+        "trip_ops": hs_ops,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -42,6 +42,15 @@ handed to ``_solve_batch`` (``kkt_solve``: the horizon-sharded SPIKE
 solve of ``parallel/solve_sharded.py``) takes every solve instead, with
 one refinement pass.
 
+The step coupling. The Gauss-Newton blocks and the defect's curvature
+of a Hermite-Simpson step (``_pair_coupling``: two ``jacfwd`` and one
+``hessian`` of the step defect under ``vmap``, ~660 small kernels a
+trip) are one launch of the CUDA kernel of :mod:`..ops.hs_coupling` for
+float32 memoryless problems whose dynamics that kernel holds, on a card;
+the route is chosen from the input when the building blocks are made
+(``_ALFuncs.coupling``), and everything else keeps ``_pair_coupling`` or
+its scheme's own path.
+
 Precision. Float32 by default, with reduced-precision matmul modes off:
 the reference pins ``Precision.HIGHEST`` because reduced-precision
 products corrupt the Gauss-Newton blocks once rho is large.
@@ -61,7 +70,7 @@ torch.set_float32_matmul_precision("highest")
 
 from ..core.problem import VGPData, map_lanes, tree_map
 from ..core.types import Status
-from ..ops import bt_cuda, cyclic_reduction
+from ..ops import bt_cuda, cyclic_reduction, hs_coupling
 from ..transcribe.nlp import NLP
 from ..utils import profiling
 from . import btridiag, shooting
@@ -241,6 +250,11 @@ class _ALFuncs:
                 self.w > bt_cuda.MAX_W or self.dtype != torch.float32):
             self.kkt = "cr"
         dev = data.x0.device
+        # the step coupling's route, from the input alone: the kernel
+        # for float32 Hermite-Simpson problems whose dynamics it holds,
+        # on a card; _pair_coupling (or the scheme's own path) elsewhere
+        self.coupling = ("kernel" if hs_coupling.takes(nlp, self.dtype, dev)
+                         else "plain")
         self.ks_step = torch.arange(d.nsteps, device=dev)
         self.ks_node = torch.arange(self.K, device=dev)
         lb, ub = self._lanes(nlp.bounds)
@@ -355,14 +369,22 @@ class _ALFuncs:
         generic node-pair path; a delayed problem differentiates only
         the two newest nodes of each window, which keeps the blocks
         tridiagonal), active-set masking and Levenberg damping. ``g``
-        carries the inequality residuals at Z."""
+        carries the inequality residuals at Z. On the kernel route
+        (``self.coupling``) the step coupling is one launch over the
+        batch (:mod:`..ops.hs_coupling`)."""
+        coupled = ()
+        if self.coupling == "kernel":
+            coupled = hs_coupling.coupling(
+                self.nlp.dynamics, Z.contiguous(), lam_def.contiguous(),
+                rho.contiguous(), self.cscale.contiguous(),
+                self.data.dt.contiguous(), exact=self.cfg.hessian != "gn")
         return self._lanes(
             self._gn_blocks_lane, self.scale, self.cscale, self.track_ctrs,
-            Z, lam_def, lam_eq, mu, rho, free, lm, g,
+            Z, lam_def, lam_eq, mu, rho, free, lm, g, *coupled,
         )
 
     def _gn_blocks_lane(self, data, scale, cscale, tc, Z, lam_def, lam_eq,
-                        mu, rho, free, lm, g):
+                        mu, rho, free, lm, g, *coupled):
         nlp, cfg, w = self.nlp, self.cfg, self.w
         d = nlp.dims
         dtype = Z.dtype
@@ -417,7 +439,9 @@ class _ALFuncs:
 
         D = vmap(node_blocks)(Z, self.ks_node, mu, lam_eq, tc, g)
 
-        if nlp.delay:
+        if coupled:
+            Dc, O = coupled
+        elif nlp.delay:
             Dc, O = self._window_coupling(data, cscale, Z, lam_def, rho)
         elif cfg.sep_assembly and nlp.scheme in ("euler", "trapezoidal"):
             Dc, O = self._sep_coupling(data, cscale, Z, lam_def, rho)

@@ -66,9 +66,10 @@ Counts. The trips of a device loop are known on the card, in the loop's
 two device counters. A solve never waits on them: :func:`settle` reads
 the counters of every loop launched since the last read (one read for
 all) and adds what they gained to ``COUNTS["trips"]``, to the launch
-tallies (``bt_cuda``'s and ``cyclic_reduction``'s counters add a graph's
-recorded launches for each trip) and to ``graph_loop``'s counts. Call it
-before reading a count; the cache calls it before it drops an entry.
+tallies (``bt_cuda``'s, ``cyclic_reduction``'s and ``hs_coupling``'s
+counters add a graph's recorded launches for each trip) and to
+``graph_loop``'s counts. Call it before reading a count; the cache calls
+it before it drops an entry.
 
 Card time. Every insertion of a loop has a stamp slot of its own (a
 program's loops one slot each by their position in its body, a loop
@@ -153,7 +154,7 @@ import torch
 
 from ..core.problem import (tree_flatten, tree_flatten_with_paths,
                             tree_map, tree_unflatten)
-from ..ops import bt_cuda, cyclic_reduction, graph_loop
+from ..ops import bt_cuda, cyclic_reduction, graph_loop, hs_coupling
 from ..utils import profiling
 from .al_sqp import (PHASES, SolverConfig, _active, _ALFuncs, _exponents,
                      _run_steps, _stamp, _trip)
@@ -430,7 +431,7 @@ class _Captured:
     :meth:`step`: what a trip's entry and a program's share."""
 
     graph = None
-    tally = cr_tally = None
+    tally = cr_tally = hs_tally = None
     pool_bytes = 0
     static_bytes = 0
     #: the entries of the loops a program's graph runs
@@ -447,12 +448,14 @@ class _Captured:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         with bt_cuda.recording() as tally, \
-                cyclic_reduction.recording() as cr_tally:
+                cyclic_reduction.recording() as cr_tally, \
+                hs_coupling.recording() as hs_tally:
             with torch.cuda.graph(graph):
                 reserved = torch.cuda.memory_reserved()
                 out = self.step()
                 self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.graph, self.tally, self.cr_tally = graph, tally, cr_tally
+        self.graph, self.tally = graph, tally
+        self.cr_tally, self.hs_tally = cr_tally, hs_tally
         COUNTS["captures"] += 1
         COUNTS["capture_s"] += time.perf_counter() - t0
         return out
@@ -461,6 +464,7 @@ class _Captured:
         """Count the launches of ``n`` replays."""
         bt_cuda.replayed(self.tally, n)
         cyclic_reduction.replayed(self.cr_tally, n)
+        hs_coupling.replayed(self.hs_tally, n)
 
     def stamps(self) -> list:
         """The device tensors :func:`settle` reads: the loops' slots."""

@@ -41,7 +41,7 @@ from _torch_parity import HostReads, uas_batch
 from etol_tpu_torch.core import problem as tproblem
 from etol_tpu_torch.models import problems as tproblems
 from etol_tpu_torch.models import tuned as ttuned
-from etol_tpu_torch.ops import bt_cuda, graph_loop
+from etol_tpu_torch.ops import bt_cuda, graph_loop, hs_coupling
 from etol_tpu_torch.solve import al_sqp as tal
 from etol_tpu_torch.solve import trip_graph
 
@@ -286,9 +286,11 @@ def test_settle_reads_each_loops_counters_once():
                     tal.init_multipliers(tnlp, tb))
     entry = trip_graph._Entry(F, tcfg, st)
     entry.tally, entry.cr_tally = {("smem", 12, 5, 4): 1}, {"solves": 0}
+    entry.hs_tally = {(12, 5, 4): 1}
     saved = (dict(trip_graph.COUNTS), bt_cuda.LAUNCHES, graph_loop.LAUNCHES,
              graph_loop.TRIPS)
     saved_by = dict(bt_cuda.LAUNCHES_BY)
+    saved_hs = hs_coupling.LAUNCHES, dict(hs_coupling.LAUNCHES_BY)
     try:
         entry.counts.copy_(torch.tensor([7, 5]))
         trip_graph._UNREAD[entry] = None
@@ -299,6 +301,7 @@ def test_settle_reads_each_loops_counters_once():
         trip_graph.settle()
         assert trip_graph.COUNTS["trips"] - saved[0]["trips"] == 7
         assert bt_cuda.LAUNCHES - saved[1] == 7
+        assert hs_coupling.LAUNCHES - saved_hs[0] == 7
         assert (graph_loop.LAUNCHES - saved[2],
                 graph_loop.TRIPS - saved[3]) == (10, 7)
         assert entry.read == (10, 7) and not trip_graph._UNREAD
@@ -307,3 +310,6 @@ def test_settle_reads_each_loops_counters_once():
         bt_cuda.LAUNCHES, graph_loop.LAUNCHES, graph_loop.TRIPS = saved[1:]
         bt_cuda.LAUNCHES_BY.clear()
         bt_cuda.LAUNCHES_BY.update(saved_by)
+        hs_coupling.LAUNCHES = saved_hs[0]
+        hs_coupling.LAUNCHES_BY.clear()
+        hs_coupling.LAUNCHES_BY.update(saved_hs[1])

@@ -50,6 +50,7 @@ MODULES = [
     "models/__init__", "models/dynamics", "models/fleet", "models/problems",
     "models/tuned",
     "ops/__init__", "ops/bt_cuda", "ops/cyclic_reduction", "ops/graph_loop",
+    "ops/hs_coupling",
     "parallel/__init__", "parallel/axis", "parallel/distributed",
     "parallel/dryrun", "parallel/horizon", "parallel/kkt", "parallel/mesh",
     "parallel/solve_sharded",

@@ -36,7 +36,7 @@ from etol_tpu.models import problems as jproblems
 from etol_tpu.solve import al_sqp as jal
 from etol_tpu_torch.core.types import Status
 from etol_tpu_torch.models import problems as tproblems
-from etol_tpu_torch.ops import bt_cuda, graph_loop
+from etol_tpu_torch.ops import bt_cuda, graph_loop, hs_coupling
 from etol_tpu_torch.parallel import make_mesh
 from etol_tpu_torch.parallel.kkt import make_solver
 from etol_tpu_torch.solve import al_sqp as tal
@@ -363,9 +363,12 @@ def test_two_programs_hold_one_loop(monkeypatch):
         trip_graph._CACHE.move_to_end(key)  # replayed: the entry is oldest
     assert next(iter(trip_graph._CACHE.values())) is entry
 
+    # the OCP is trapezoidal: its trips launch no step coupling kernel
     entry.tally, entry.cr_tally = {("smem", 33, 4, 1): 1}, {"solves": 0}
+    entry.hs_tally = {}
     saved = (dict(trip_graph.COUNTS), bt_cuda.LAUNCHES, graph_loop.LAUNCHES,
-             graph_loop.TRIPS, dict(bt_cuda.LAUNCHES_BY))
+             graph_loop.TRIPS, dict(bt_cuda.LAUNCHES_BY),
+             hs_coupling.LAUNCHES)
     try:
         entry.counts.copy_(torch.tensor([entry.read[0] + 6,
                                          entry.read[1] + 5]))
@@ -375,6 +378,7 @@ def test_two_programs_hold_one_loop(monkeypatch):
         trip_graph.settle()
         assert trip_graph.COUNTS["trips"] - saved[0]["trips"] == 5
         assert bt_cuda.LAUNCHES - saved[1] == 5
+        assert hs_coupling.LAUNCHES == saved[5]
         assert (graph_loop.LAUNCHES - saved[2],
                 graph_loop.TRIPS - saved[3]) == (6, 5)
     finally:
