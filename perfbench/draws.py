@@ -40,8 +40,8 @@ STREAMS = ("batch", "seeds", "episode", "setup", "warmup", "profiled",
            "order")
 
 
-def load_traffic(name: str) -> dict:
-    with open(os.path.join(TRAFFIC_DIR, f"{name}.json")) as fh:
+def load_traffic(name: str, traffic_dir: str = TRAFFIC_DIR) -> dict:
+    with open(os.path.join(traffic_dir, f"{name}.json")) as fh:
         return json.load(fh)
 
 

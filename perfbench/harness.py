@@ -5,9 +5,18 @@ metrics, driven by the files the cell's names lead to:
   reports;
 * ``configs/<config>.json``: the problem, the program's entry and the
   check's limits (``reference/problem.py`` reads the same file);
+* ``entries/<entry>.py``: the program under test (the contract is in
+  ``entries/__init__.py``);
+* ``reference/dynamics/<dynamics>.py``, ``reference/schemes/<scheme>.py``:
+  the check's model of the configuration's problem;
 * ``traffic/<traffic>.json``: the mix, read by ``draws.py``;
 * ``metrics/<metric>.py``: one reader a metric, ``read(ctx)`` returning a
   number or None (nothing to read: the metric is left out of the line).
+
+Each lies under ``perfbench/`` of one root, the checkout's by default.
+A cell of n > 1 cards runs as n ranks (``ranks.py``): every rank runs the
+same set-up and window on its own card, and rank 0 alone checks, reads
+the metrics and returns the line.
 
 The window is a closed loop. A fleet dispatches batch k+1 while batch k
 runs on the card (at most two in flight) and stops dispatching once
@@ -30,8 +39,7 @@ import traceback
 import numpy as np
 import torch
 
-from . import draws
-from .entries import ENTRIES
+from . import draws, entries
 from .reference.check import Tally
 from .reference.problem import load_config, problem_of
 from .trace import Spans, busy_and_gaps
@@ -39,12 +47,19 @@ from .trace import Spans, busy_and_gaps
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 METRIC_DIR = os.path.join(HERE, "metrics")
+#: put before every line this process logs (a rank's number on n ranks)
+LOG_PREFIX = ""
 #: lanes a block of the output check
 CHECK_BLOCK = 8192
 
 
 def log(*a):
-    print(*a, file=sys.stderr, flush=True)
+    print(LOG_PREFIX + " ".join(map(str, a)), file=sys.stderr, flush=True)
+
+
+def bench_path(root: str, *parts) -> str:
+    """A path under the benchmark's directory of the checkout ``root``."""
+    return os.path.join(root, "perfbench", *parts)
 
 
 def load_benchmark(root: str = ROOT) -> dict:
@@ -59,9 +74,9 @@ def cell_metrics(bench: dict, cell: str, trace: bool) -> list:
     return [m for m in group if cell in m.get("workloads", [cell])]
 
 
-def read_metric(name: str, ctx):
+def read_metric(name: str, ctx, metric_dir: str = METRIC_DIR):
     spec = importlib.util.spec_from_file_location(
-        f"perfbench.metrics.{name}", os.path.join(METRIC_DIR, f"{name}.py"))
+        f"perfbench.metrics.{name}", os.path.join(metric_dir, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read(ctx)
@@ -116,42 +131,48 @@ def _sync(device):
 
 
 class Cell:
-    """A cell's files, loaded, and its program entry built on ``device``."""
+    """A cell's files under ``root``, loaded, and its program entry built on
+    ``device``; ``ranks``: this rank's place among the cell's ranks (None
+    on one card)."""
 
     def __init__(self, name: str, device, bench: dict = None,
-                 traffic: dict = None):
-        self.bench = bench if bench is not None else load_benchmark()
+                 traffic: dict = None, root: str = ROOT, ranks=None):
+        self.bench = bench if bench is not None else load_benchmark(root)
         self.spec = next(w for w in self.bench["workloads"]
                          if w["name"] == name)
         self.name = name
-        self.config = load_config(self.spec["config"])
-        self.traffic = traffic or draws.load_traffic(self.spec["traffic"])
-        self.problem = problem_of(self.config)
+        self.config_dir = bench_path(root, "configs")
+        self.metric_dir = bench_path(root, "metrics")
+        self.entry_dir = bench_path(root, "entries")
+        self.config = load_config(self.spec["config"], self.config_dir)
+        self.traffic = traffic or draws.load_traffic(
+            self.spec["traffic"], bench_path(root, "traffic"))
+        self.problem = problem_of(self.config, self.config_dir,
+                                  bench_path(root, "reference"))
         self.device = torch.device(device)
+        self.ranks = ranks
         self.entry = None
 
     def build(self):
-        self.entry = ENTRIES[self.config["entry"]](self.config, self.traffic,
-                                                   self.device)
+        group = self.ranks.group if self.ranks is not None else None
+        self.entry = entries.load(self.config["entry"], self.entry_dir)(
+            self.config, self.traffic, self.device, group, self.config_dir)
 
     # ---- ops ------------------------------------------------------------
     def fleet_cold(self, seed, stream, k, spans):
-        """One cold batch: starts and goals drawn, then the entry's solve
-        (staged: the seeds, then the staged solve; facade: the rescued
-        fleet). Returns (Op, the solve's result)."""
+        """One cold batch: starts and goals drawn, then the entry's batch
+        (its other draws, as the staged entry's seeds, from the window's
+        own stream, or from the starts' generator in set-up). Returns (Op,
+        the batch's result)."""
         e, t = self.entry, self.traffic
         gen = draws.generator(seed, stream, k, self.device)
         x0, xf = draws.starts_goals(t, e.x0, e.xf, t["batch"], gen)
-        if self.config["entry"] == "staged":
-            sgen = draws.generator(seed, "seeds", k, self.device) \
-                if stream == "batch" else gen
-            with spans("perfbench.seeds", k):
-                z0 = e.seeds(x0, xf, sgen)
-            with spans("perfbench.solve", k):
-                res = e.cold(x0, xf, z0)
-        else:
-            with spans("perfbench.solve", k):
-                res = e.batch(x0, t["rescue_lanes"])
+
+        def seeds():
+            return (draws.generator(seed, "seeds", k, self.device)
+                    if stream == "batch" else gen)
+
+        res = e.batch(x0, xf, seeds, spans, k)
         return _op(x0, xf, res, index=k), res
 
     def fleet_warm(self, base: Op, prev, j, k, spans):
@@ -215,19 +236,28 @@ class Cell:
             return self._fleet_window(seed, seconds, spans, base)
         return self._episode_window(seed, seconds, spans)
 
+    def _decide(self, expired: bool, raised: bool):
+        """(stop, faulted) once an op has been dispatched: on one card this
+        process's clock and fault; on n ranks rank 0's clock, and a fault
+        on any rank, which stops every rank."""
+        if self.ranks is None:
+            return expired, raised
+        return self.ranks.decide(expired, raised)
+
     def _fleet_window(self, seed, seconds, spans, base) -> Window:
         t = self.traffic
         w = Window()
         cuda = self.device.type == "cuda"
         done = []
-        # the facade's solve_batch waits for its result; the staged entry
-        # returns at once, and batch k+1 is queued while batch k runs
-        synced = self.config["entry"] == "facade"
+        # an entry that is not synced returns at once, and batch k+1 is
+        # queued while batch k runs
+        synced = self.entry.synced
         prev = None
         k = 0
         spans.start()
         t0 = time.perf_counter()
         while True:
+            op = None
             try:
                 if base is None:
                     op, _ = self.fleet_cold(seed, "batch", k, spans)
@@ -240,22 +270,29 @@ class Cell:
                     prev, op = self.fleet_warm(b[0], prev, j, k, spans)
             except Exception:  # a fault of the program: counted, window ends
                 log(traceback.format_exc())
+            if op is not None:
+                w.ops.append(op)
+                w.lanes += op.status.numel()
+                k += 1
+                if cuda and not synced:
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    done.append(ev)
+                    if len(done) > 1:  # batch k-1 has ended
+                        done[-2].synchronize()
+                        w.ends.append(time.perf_counter() - t0)
+                elif synced:  # the entry returns once the batch has ended
+                    w.ends.append(time.perf_counter() - t0)
+            stop, faulted = self._decide(
+                time.perf_counter() - t0 >= seconds, op is None)
+            if faulted:  # here or on another rank: the op is a fault
+                if op is not None:
+                    w.ops.pop()
+                    w.lanes -= op.status.numel()
                 w.raised += t["batch"]
                 w.lanes += t["batch"]
                 break
-            w.ops.append(op)
-            w.lanes += op.status.numel()
-            k += 1
-            if cuda and not synced:
-                ev = torch.cuda.Event()
-                ev.record()
-                done.append(ev)
-                if len(done) > 1:  # batch k-1 has ended
-                    done[-2].synchronize()
-                    w.ends.append(time.perf_counter() - t0)
-            elif synced:  # the entry returns once the batch has ended
-                w.ends.append(time.perf_counter() - t0)
-            if time.perf_counter() - t0 >= seconds:
+            if stop:
                 break
         _sync(self.device)
         w.seconds = time.perf_counter() - t0
@@ -273,6 +310,7 @@ class Cell:
             x0 = self._episode_start(self.traffic["pool_seed"], "episode",
                                      draws.pool_index(
                                          seed, self.traffic["pool"], e))
+            raised = False
             try:
                 with spans("perfbench.episode", len(w.ops)):
                     res = self.entry.episode(x0)
@@ -289,11 +327,15 @@ class Cell:
                     self._keep(w, x0, res, j * dt, e)
             except Exception:  # a fault of the program: counted, window ends
                 log(traceback.format_exc())
+                raised = True
+            stop, faulted = self._decide(
+                time.perf_counter() - t0 >= seconds, raised)
+            if faulted:  # here or on another rank: the episode is a fault
                 w.raised += 1
                 w.lanes += 1
                 break
             e += 1
-            if time.perf_counter() - t0 >= seconds:
+            if stop:
                 break
         _sync(self.device)
         w.seconds = time.perf_counter() - t0
@@ -368,10 +410,13 @@ def forbidden_modules() -> list:
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool,
         device="cuda", t_start: float = None, control: bool = False,
-        bench: dict = None, traffic: dict = None, cell: "Cell" = None):
+        bench: dict = None, traffic: dict = None, cell: "Cell" = None,
+        root: str = ROOT, ranks=None):
     """One run; returns the result line's object, or None where the run
-    may print none (a forbidden module loaded). ``cell``: one already
-    built, which a test hands several runs."""
+    may print none (a forbidden module loaded, or a rank other than 0).
+    ``cell``: one already built, which a test hands several runs; ``root``:
+    the checkout whose files the cell is read from; ``ranks``: this rank
+    of a cell of n > 1 cards (``ranks.py``), None on one card."""
     t_start = time.perf_counter() if t_start is None else t_start
     cuda = torch.device(device).type == "cuda"
     from etol_tpu_torch.ops import bt_cuda, graph_loop
@@ -385,8 +430,10 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     phases.append(("extensions", time.perf_counter() - t_import))
     t_data = time.perf_counter()
     if cell is None:
-        cell = Cell(cell_name, device, bench, traffic)
+        cell = Cell(cell_name, device, bench, traffic, root, ranks)
         cell.build()
+    ranks = cell.ranks
+    rank0 = ranks is None or ranks.rank == 0
     _sync(cell.device)
     phases.append(("data", time.perf_counter() - t_data))
     first_use = []
@@ -402,19 +449,33 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     log("setup: " + ", ".join(f"{n} {s:.3f} s" for n, s in phases)
         + "; first use: " + ", ".join(
             f"{n} {s:.3f} s (capture {c:.3f} s)" for n, s, c in first_use))
-    spans = Spans(trace and cuda)
+    spans = Spans(trace and cuda and rank0)
+    if ranks is not None:  # the window starts once every rank is set up
+        ranks.barrier()
+        ranks.watch(seconds)
     setup_s = time.perf_counter() - t_start
     with spans:
         w = cell.window(seed, seconds, spans, base)
     trip_graph.settle()
+    peak_window = torch.cuda.max_memory_allocated(cell.device) if cuda else 0
+    peak = max(peak_setup, peak_window)
+    if ranks is not None:
+        every = ranks.gather(dict(ops=len(w.ops), digest=hashlib.sha1(
+            json.dumps([o.index for o in w.ops]).encode()).hexdigest()[:8],
+            raised=w.raised, peak=peak))
+        ranks.close()
+        if not rank0:
+            return None
+        log("ranks [ops, their indices' digest, lanes raised, peak bytes]: "
+            + json.dumps([[r["ops"], r["digest"], r["raised"], r["peak"]]
+                          for r in every]))
+        peak = max(r["peak"] for r in every)
     if cuda:
         log("device: " + device_line(cell.device))
     bad = forbidden_modules()
     if bad:
         log(f"forbidden modules loaded in this process: {bad}")
         return None
-    peak_window = torch.cuda.max_memory_allocated(cell.device) if cuda else 0
-    peak = max(peak_setup, peak_window)
     reserved_window = (torch.cuda.max_memory_reserved(cell.device)
                        if cuda else 0)
     launches = {k: v - launches0.get(k, 0)
@@ -450,7 +511,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     ctx.tally = tally
     metrics = {}
     for m in cell_metrics(cell.bench, cell_name, trace):
-        v = read_metric(m["name"], ctx)
+        v = ctx.metric(m["name"])
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     line = {"correct": tally.passed() and w.raised == 0,
@@ -460,7 +521,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
             "device": {"platform": "gpu" if cuda else "cpu",
                        "kind": (torch.cuda.get_device_name(cell.device)
                                 if cuda else "cpu"),
-                       "count": 1, "memory_peak_bytes": peak}}
+                       "count": 1 if ranks is None else ranks.size,
+                       "memory_peak_bytes": peak}}
     if trace and cuda:
         busy_ms, gaps = busy_and_gaps(intervals, w.seconds * 1e3)
         line["device"]["busy_s"] = busy_ms / 1e3
@@ -496,6 +558,11 @@ class Context:
     reserved_window_bytes: int
     traced: bool
     tally: Tally = None
+
+    def metric(self, name):
+        """Metric ``name`` as its reader, beside the cell's others, reads
+        it: a reader may build on another's."""
+        return read_metric(name, self, self.cell.metric_dir)
 
     def span_ms(self, name):
         """The card's ms of each launch filed under span ``name``."""

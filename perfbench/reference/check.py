@@ -19,6 +19,9 @@ Per lane, each a number whose limit the configuration's file states:
 * ``obj_gap``: |returned objective - the trapezoid-rule running cost of
   the returned trajectory| / max(1, |that cost|).
 
+The dynamics and the scheme are the files the configuration names:
+``dynamics/<name>.py`` and ``schemes/<name>.py`` beside this one.
+
 Over the run, one more number:
 
 * ``stationarity``: the median over the run's SOLVED lanes of each lane's
@@ -36,6 +39,10 @@ Nothing here imports the program.
 """
 from __future__ import annotations
 
+import functools
+import importlib.util
+import os
+
 import numpy as np
 import torch
 
@@ -46,32 +53,30 @@ DIVERGED = 4
 NUMBERS = ("defect", "bound", "zone_depth", "track_depth", "obj_gap")
 #: the quantile of the lanes' residuals that ``stationarity`` compares
 STAT_QUANTILE = 0.5
-#: the states the zones read: the position, the first two
-POS_DIMS = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _model(kind: str, name: str, reference_dir: str):
+    """The module of ``<reference_dir>/<kind>/<name>.py``, loaded once."""
+    path = os.path.join(reference_dir, kind, f"{name}.py")
+    if not os.path.exists(path):
+        raise ValueError(f"no reference {kind} {name!r} ({path})")
+    spec = importlib.util.spec_from_file_location(
+        f"perfbench.reference.{kind}.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _dynamics(prob: Problem, x, u):
-    if prob.dynamics == "unicycle":
-        return torch.stack([u[..., 0] * torch.cos(x[..., 2]),
-                            u[..., 0] * torch.sin(x[..., 2]),
-                            u[..., 1]], dim=-1)
-    if prob.dynamics == "single_integrator":
-        return u[..., :x.shape[-1]]
-    raise ValueError(f"no reference dynamics {prob.dynamics!r}")
+    return _model("dynamics", prob.dynamics, prob.reference_dir).f(
+        x, u, prob.params)
 
 
 def _defects(prob: Problem, X, U):
     """[n, N, nx] collocation defects of the scheme."""
-    dt = prob.dt
-    x0, x1, u0, u1 = X[:, :-1], X[:, 1:], U[:, :-1], U[:, 1:]
-    f0, f1 = _dynamics(prob, x0, u0), _dynamics(prob, x1, u1)
-    if prob.scheme == "trapezoidal":
-        return x1 - x0 - 0.5 * dt * (f0 + f1)
-    if prob.scheme == "hermite_simpson":
-        xm = 0.5 * (x0 + x1) + (dt / 8.0) * (f0 - f1)
-        fm = _dynamics(prob, xm, 0.5 * (u0 + u1))
-        return x1 - x0 - (dt / 6.0) * (f0 + 4.0 * fm + f1)
-    raise ValueError(f"no reference scheme {prob.scheme!r}")
+    return _model("schemes", prob.scheme, prob.reference_dir).defects(
+        lambda x, u: _dynamics(prob, x, u), X, U, prob.dt)
 
 
 def _defect_scale(prob: Problem, like):
@@ -124,8 +129,9 @@ def stationarity(prob: Problem, x0, xf, Z, lam_def, mu):
     projected on the box (Z - clamp(Z - s g, lo, hi)) / s with the solver's
     variable scales s, as an inf-norm over the lane. A zone row's gradient
     is the program's own smooth form, which the reference does not copy: at
-    a node where some ``mu`` is positive, the position's components are
-    left out; everywhere else ``mu`` is 0 and L is the whole Lagrangian."""
+    a node where some ``mu`` is positive, the position's components (the
+    first ``pos_dims`` states) are left out; everywhere else ``mu`` is 0
+    and L is the whole Lagrangian."""
     nx, nu = prob.nx, prob.nu
     Zg = Z.detach().clone().requires_grad_(True)
     X, U = Zg[..., :nx], Zg[..., nx:nx + nu]
@@ -142,9 +148,9 @@ def stationarity(prob: Problem, x0, xf, Z, lam_def, mu):
     pg = ((Z - torch.minimum(torch.maximum(Z - s * g, lo), hi)) / s).abs()
     if mu.shape[-1]:
         held = (mu > 0).any(-1)                                # [n, K]
-        pg[..., :POS_DIMS] = torch.where(held[..., None],
-                                         torch.zeros_like(pg[..., :POS_DIMS]),
-                                         pg[..., :POS_DIMS])
+        d = prob.pos_dims
+        pg[..., :d] = torch.where(held[..., None],
+                                  torch.zeros_like(pg[..., :d]), pg[..., :d])
     return pg.flatten(1).amax(1)
 
 

@@ -1,4 +1,5 @@
-"""The benchmark of etol_tpu_torch on one card: one run of one cell.
+"""The benchmark of etol_tpu_torch: one run of one cell, on the cards its
+``chips`` names.
 
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1> [--control 1]
@@ -12,6 +13,14 @@ limit. ``--control 1`` also prints on stderr what the check reads on the
 window's outputs rounded to bfloat16 (the check's control). Exits non-zero,
 printing no result, where CUDA or the cell's cards are missing, or where
 JAX or the JAX package is loaded once the window has closed.
+
+A cell of one card runs in this process alone. A cell of n > 1 cards runs
+as n ranks, one card each (``cuda:r``): this process is rank 0 and starts
+the others, every rank runs the same window, and rank 0 checks and prints
+the line, whose ``device.count`` is n (``perfbench/ranks.py``). A rank's
+fault ends the run on every rank, counted in ``failed``, or with a
+non-zero exit and no line, within ``ranks.TIMEOUT_S + ranks.GRACE_S``
+seconds past ``--seconds``.
 """
 import time
 
@@ -50,6 +59,7 @@ def main(argv=None) -> int:
         return 2
     import torch
 
+    # n cards: one rank on each of cuda:0 .. cuda:n-1
     chips = cells[args.workload]["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"needs {chips} CUDA device(s); available: "
@@ -58,11 +68,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     torch.set_num_threads(4)
-    from perfbench import harness
+    from perfbench import ranks
 
-    line = harness.run(args.workload, args.seed, args.seconds,
-                       bool(args.trace), device="cuda:0", t_start=T_START,
-                       control=bool(args.control), bench=bench)
+    line = ranks.run(args.workload, args.seed, args.seconds,
+                     bool(args.trace), chips, "cuda", t_start=T_START,
+                     control=bool(args.control), bench=bench)
     if line is None:
         return 3
     for name, c in line["compared"].items():

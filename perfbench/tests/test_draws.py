@@ -49,14 +49,14 @@ class _Stub:
     """An entry that answers at once: what a window handed it is what is
     compared."""
 
+    synced = False
+
     def __init__(self, nx=3):
         self.x0, self.xf = torch.zeros(nx), torch.tensor([8.0, 6.0, 0.0])
         self.seen = []
 
-    def seeds(self, x0, xf, gen):
-        return torch.rand((x0.shape[0], 4), generator=gen)
-
-    def cold(self, x0, xf, z0):
+    def batch(self, x0, xf, seeds, spans, k):
+        z0 = torch.rand((x0.shape[0], 4), generator=seeds())
         self.seen.append((x0.clone(), xf.clone(), z0.clone()))
         B = x0.shape[0]
         return _Res(torch.zeros(B, 1), torch.zeros(B),
