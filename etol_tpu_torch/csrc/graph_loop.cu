@@ -13,16 +13,22 @@
 //     trip writes at its end (any lane active), adds one to the loop's
 //     launch counter and, in the while node's body, one to its trip
 //     counter, and sets the while node's condition handle from the flag.
-//     Where the loop has a stamp slot (four unsigned 64-bit integers on
+//     Where the loop has a stamp slot (five unsigned 64-bit integers on
 //     the card, one slot an insertion: two loops of one program may run
 //     one trip graph), the head kernel writes %globaltimer into slot[0]
 //     and adds one to slot[3] (the loop's runs), the body's adds one to
 //     slot[2] (its trips), and the kernel that ends the loop adds the
-//     time since slot[0] to slot[1]: the loop's card time in ns.
+//     time since slot[0] to slot[1]: the loop's card time in ns. Where
+//     the trip has a line-search buffer too (two unsigned 64-bit
+//     integers of the trip's, which two phase stamps in the trip fill:
+//     the line search's start, and its ns summed since the buffer was
+//     last emptied), the body's kernel moves buf[1] into slot[4] (the
+//     loop's line-search ns) and empties it; the head's empties it.
 //   * phase_stamp_kernel: one thread, launched on a stream (captured into
-//     a traced trip between its phases). It adds the %globaltimer time
-//     since buf[0] to buf[1 + phase] and writes the time to buf[0]; phase
-//     -1 only writes it.
+//     a traced trip between its phases, and into every trip of a device
+//     loop at its line search's start and end). It adds the %globaltimer
+//     time since buf[0] to buf[1 + phase] and writes the time to buf[0];
+//     phase -1 only writes it.
 //   * etol_graph_loop_insert: adds a loop to the graph a stream is
 //     capturing, after the work captured so far:
 //         head: loop_cond_kernel (body = 0)   -- test before the first trip
@@ -37,10 +43,11 @@
 //
 // What bounds it: nothing of its own. The condition kernel moves 33 bytes
 // (the flag, the two counters read and written; with a stamp slot 16 to
-// 24 more) and does no arithmetic; its cost is one dependent launch inside
-// the graph a trip, which is what the host's replay and its wait on a flag
-// a trip late cost before. A traced trip adds a phase stamp (16 bytes)
-// at each of its phase boundaries.
+// 24 more, with a line-search buffer 24 more) and does no arithmetic; its
+// cost is one dependent launch inside the graph a trip, which is what the
+// host's replay and its wait on a flag a trip late cost before. A trip
+// with a line-search buffer adds two phase stamps (16 bytes each) a line
+// search; a traced trip one at each of its phase boundaries.
 //
 // The stream and graph handles passed in are torch's (a CUstream and a
 // CUgraph of the CUDA driver, valid across the two runtimes in the
@@ -64,7 +71,8 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 __global__ void loop_cond_kernel(cudaGraphConditionalHandle handle,
                                  const unsigned char* flag,
                                  unsigned long long* counts,
-                                 unsigned long long* stamp, int body) {
+                                 unsigned long long* stamp,
+                                 unsigned long long* ls, int body) {
   counts[0] += 1;     // launches of this kernel
   counts[1] += body;  // trips run under the loop
   const bool more = *flag;
@@ -72,10 +80,12 @@ __global__ void loop_cond_kernel(cudaGraphConditionalHandle handle,
     const unsigned long long now = globaltimer();
     if (body) {
       stamp[2] += 1;
+      if (ls != nullptr) stamp[4] += ls[1];
     } else {
       stamp[0] = now;
       stamp[3] += 1;
     }
+    if (ls != nullptr) ls[1] = 0;
     if (!more) stamp[1] += now - stamp[0];
   }
   cudaGraphSetConditional(handle, more ? 1u : 0u);
@@ -92,8 +102,9 @@ cudaError_t add_cond_kernel(cudaGraphNode_t* node, cudaGraph_t graph,
                             cudaGraphConditionalHandle handle,
                             const unsigned char* flag,
                             unsigned long long* counts,
-                            unsigned long long* stamp, int body) {
-  void* args[] = {&handle, &flag, &counts, &stamp, &body};
+                            unsigned long long* stamp,
+                            unsigned long long* ls, int body) {
+  void* args[] = {&handle, &flag, &counts, &stamp, &ls, &body};
   cudaKernelNodeParams p = {};
   p.func = reinterpret_cast<void*>(loop_cond_kernel);
   p.gridDim = dim3(1);
@@ -145,12 +156,14 @@ cudaError_t wait_on(cudaStream_t stream, cudaGraphNode_t* node) {
 // loop around the captured graph `trip` (a cudaGraph_t, cloned in) with
 // its flag `flag` (a 1-byte bool on the card) and its counters `counts`
 // (two unsigned 64-bit integers on the card: launches of the condition
-// kernel, trips) and its stamp slot `stamp` (four unsigned 64-bit integers
-// on the card, or null: see loop_cond_kernel); what the stream captures
-// next runs after the loop. The flag, the counters and the slot must
-// outlive every graph made from the capture.
+// kernel, trips), its stamp slot `stamp` (five unsigned 64-bit integers
+// on the card, or null) and the trip's line-search buffer `ls` (two
+// unsigned 64-bit integers on the card, or null; read only with a slot:
+// see loop_cond_kernel); what the stream captures next runs after the
+// loop. The flag, the counters, the slot and the buffer must outlive
+// every graph made from the capture.
 extern "C" int etol_graph_loop_insert(void* stream, void* trip, void* flag,
-                                      void* counts, void* stamp) {
+                                      void* counts, void* stamp, void* ls) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
   cudaGraph_t graph = nullptr;
@@ -166,8 +179,9 @@ extern "C" int etol_graph_loop_insert(void* stream, void* trip, void* flag,
   const unsigned char* f = static_cast<const unsigned char*>(flag);
   unsigned long long* c = static_cast<unsigned long long*>(counts);
   unsigned long long* st = static_cast<unsigned long long*>(stamp);
+  unsigned long long* lb = static_cast<unsigned long long*>(ls);
   cudaGraphNode_t head;
-  e = add_cond_kernel(&head, graph, deps, n_deps, handle, f, c, st, 0);
+  e = add_cond_kernel(&head, graph, deps, n_deps, handle, f, c, st, lb, 0);
   if (e != cudaSuccess) return (int)e;
   cudaGraphNodeParams cp = {};
   cp.type = cudaGraphNodeTypeConditional;
@@ -182,7 +196,7 @@ extern "C" int etol_graph_loop_insert(void* stream, void* trip, void* flag,
   e = cudaGraphAddChildGraphNode(&step, body, nullptr, 0,
                                  static_cast<cudaGraph_t>(trip));
   if (e != cudaSuccess) return (int)e;
-  e = add_cond_kernel(&tail, body, &step, 1, handle, f, c, st, 1);
+  e = add_cond_kernel(&tail, body, &step, 1, handle, f, c, st, lb, 1);
   if (e != cudaSuccess) return (int)e;
   return (int)wait_on(s, &loop);
 }

@@ -28,10 +28,13 @@ run under it) are read from the loops' device counters by their owner
 Card time: a loop inserted with a stamp slot (``SLOT`` int64 on the card)
 gains its own time, stamped from ``%globaltimer`` by the condition
 kernel when the loop starts and when its flag ends it, with its runs
-and trips (``SLOT_FIELDS``); no launch and no node is added.
+and trips (``SLOT_FIELDS``); no launch and no node is added. Inserted
+with the trip's line-search buffer too (``LS`` int64 on the card, which
+two :func:`stamp` launches in the trip fill), the slot gains the trip's
+line-search time, moved in by the condition kernel after each trip.
 :func:`stamp` launches a one-thread kernel that adds the time since a
-buffer's last stamp to one of its phases (a traced trip's phases,
-``solve/trip_graph.py``).
+buffer's last stamp to one of its phases (a traced trip's phases, every
+trip's line search, ``solve/trip_graph.py``).
 """
 from __future__ import annotations
 
@@ -55,9 +58,13 @@ BUILD_SECONDS = None
 #: conditional nodes whose body may hold memsets and memcopies
 MIN_VERSION = 12040
 #: a loop's stamp slot: the start of its latest run (%globaltimer ns), its
-#: card ns, trips and runs summed over its runs
-SLOT_FIELDS = ("start", "ns", "trips", "runs")
+#: card ns, trips and runs summed over its runs, and the card ns of its
+#: trips' line searches
+SLOT_FIELDS = ("start", "ns", "trips", "runs", "ls_ns")
 SLOT = len(SLOT_FIELDS)
+#: a trip's line-search buffer: the latest line search's start
+#: (%globaltimer ns) and the line searches' ns since the loop last read it
+LS = 2
 
 _SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(__file__)), "csrc", "graph_loop.cu"
@@ -75,7 +82,7 @@ def build() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         vp = ctypes.c_void_p
         for name, args in (
-                ("etol_graph_loop_insert", [vp, vp, vp, vp, vp]),
+                ("etol_graph_loop_insert", [vp, vp, vp, vp, vp, vp]),
                 ("etol_phase_stamp", [vp, vp, ctypes.c_int]),
                 ("etol_graph_loop_load", []),
                 ("etol_graph_loop_versions", [ctypes.POINTER(ctypes.c_int)]
@@ -103,7 +110,7 @@ def _check(rc: int, what: str) -> None:
 
 
 def insert(trip: int, flag: torch.Tensor, counts: torch.Tensor,
-           stamp: torch.Tensor = None) -> None:
+           stamp: torch.Tensor = None, ls: torch.Tensor = None) -> None:
     """Add to the current stream's capture, after the work captured so
     far, a loop: while ``flag`` (a 0-dim bool on the card, written by the
     trip) is true, the captured graph ``trip`` (a ``cudaGraph_t``,
@@ -111,8 +118,10 @@ def insert(trip: int, flag: torch.Tensor, counts: torch.Tensor,
     cloned in; the caller keeps its pool alive). The flag is tested
     before the first trip. ``counts`` (two int64 on the card) gains the
     condition kernel's launches and the trips; ``stamp`` (``SLOT`` int64
-    on the card, or None) this insertion's card time, runs and trips.
-    The flag, the counts and the slot must outlive the captured graph."""
+    on the card, or None) this insertion's card time, runs and trips,
+    and with ``ls`` (the trip's ``LS`` int64 line-search buffer on the
+    card, or None) its trips' line-search time. The flag, the counts,
+    the slot and the buffer must outlive the captured graph."""
     if flag.dtype != torch.bool or flag.dim() != 0 or \
             flag.device.type != "cuda":
         raise ValueError("the loop's flag must be a 0-dim bool on a card")
@@ -125,13 +134,20 @@ def insert(trip: int, flag: torch.Tensor, counts: torch.Tensor,
             or stamp.device != flag.device or not stamp.is_contiguous()):
         raise ValueError(f"a loop's stamp slot must be {SLOT} int64 beside "
                          "the flag")
+    if ls is not None and (
+            stamp is None or ls.dtype != torch.int64
+            or tuple(ls.shape) != (LS,) or ls.device != flag.device
+            or not ls.is_contiguous()):
+        raise ValueError(f"a trip's line-search buffer must be {LS} int64 "
+                         "beside the flag, with a stamp slot")
     if not torch.cuda.is_current_stream_capturing():
         raise RuntimeError("graph_loop: a loop is added to a capture; the "
                            "current stream is not capturing")
     stream = torch.cuda.current_stream().cuda_stream
     _check(build().etol_graph_loop_insert(
         stream, trip, flag.data_ptr(), counts.data_ptr(),
-        None if stamp is None else stamp.data_ptr()),
+        None if stamp is None else stamp.data_ptr(),
+        None if ls is None else ls.data_ptr()),
         "adding the loop to the capture")
 
 

@@ -231,6 +231,10 @@ class _ALFuncs:
     #: ``stamp(phase)`` at a trip's phase boundaries (:data:`PHASES`), set
     #: on a traced trip's copy by :mod:`.trip_graph`; None stamps nothing
     stamp = None
+    #: ``ls_stamp(phase)`` at the line search's start (-1) and end (0),
+    #: set on a device loop's trip by :mod:`.trip_graph`; None stamps
+    #: nothing
+    ls_stamp = None
 
     def __init__(self, nlp: NLP, cfg: SolverConfig, data: VGPData,
                  box=None, kkt_solve=None):
@@ -723,6 +727,13 @@ def _stamp(F: "_ALFuncs", phase: int) -> None:
         F.stamp(phase)
 
 
+def _ls_stamp(F: "_ALFuncs", phase: int) -> None:
+    """Open (-1) or close (0) the line search on a device loop's card
+    clock; nothing elsewhere."""
+    if F.ls_stamp is not None:
+        F.ls_stamp(phase)
+
+
 def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
           reuse: bool = False) -> dict:
     """One flattened AL-SQP iteration for every lane (the JAX package's
@@ -791,6 +802,7 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
 
     # parallel Armijo line search over the alpha grid, one batched
     # residual pass for all candidates
+    _ls_stamp(F, -1)
     alphas = 0.5**exps
     Zc = torch.clamp(
         Z[:, None] + alphas[None, :, None, None] * p[:, None],
@@ -827,6 +839,7 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
     g_n = _sel(move, gc[lanes, sel], g)
     cost_n = torch.where(move, costc[lanes, sel], cost)
     val_new = torch.where(move, valc[lanes, sel], val)
+    _ls_stamp(F, 0)
     _stamp(F, 3)
 
     # Levenberg adaptation: full steps trust the model more, backtracked

@@ -76,6 +76,11 @@ program's loops one slot each by their position in its body, a loop
 alone its entry's), where the condition kernel stamps the loop's card
 time, runs and trips (``graph_loop.SLOT_FIELDS``); :func:`settle` reads
 the slots in the same read and keeps what they gained as ``LAST_READ``.
+Every trip of a device loop also stamps its line search's start and end
+(``al_sqp._ls_stamp``: two one-thread kernels into the entry's
+line-search buffer), and the condition kernel moves the trip's
+line-search time into the slot, so each insertion has its line search's
+card time beside its own; nothing is added on the host a trip.
 While the span recorder (``utils/profiling.py``) is on, the trips
 captured (and the programs holding them) are traced ones, of keys of
 their own: a one-thread stamp
@@ -179,7 +184,8 @@ COUNTS = dict(captures=0, capture_s=0.0, trips=0, idle_trips=0,
 #: what the latest :func:`settle` that found loops to read gained:
 #: ``loops``, one dict an insertion that ran (``body``: the program's
 #: body, or "loop" for a loop alone; ``position``: its index among the
-#: body's loops; ``lanes``; ``runs``, ``trips`` and card ``ns``), and
+#: body's loops; ``lanes``; ``runs``, ``trips``, card ``ns`` and its
+#: trips' line searches' card ``ls_ns``), and
 #: ``phases``, one dict a traced trip's entry (``lanes``, ``trips`` and
 #: card ``ns`` by phase of ``al_sqp.PHASES``)
 LAST_READ = dict(loops=[], phases=[])
@@ -485,7 +491,8 @@ class _Captured:
             if slot["runs"] > 0:
                 read["loops"].append(dict(
                     body=body, position=i, lanes=B, runs=slot["runs"],
-                    trips=slot["trips"], ns=slot["ns"]))
+                    trips=slot["trips"], ns=slot["ns"],
+                    ls_ns=slot["ls_ns"]))
 
 
 def _nbytes(tensors) -> int:
@@ -604,11 +611,18 @@ class _Entry(_Captured):
         self.counts = torch.zeros((2,), dtype=torch.int64, device=dev)
         self.read = (0, 0)
         # the stamp slot of the loop alone (or inserted outside a
-        # program); a traced trip's phase buffer (the last stamp, then
-        # the ns of each phase), which its stamps write
+        # program); on a card the trip's line-search buffer, which its
+        # two line-search stamps write and the condition kernel empties
+        # into the slot; a traced trip's phase buffer (the last stamp,
+        # then the ns of each phase), which its stamps write
         self.device = dev
         self.slot = torch.zeros((graph_loop.SLOT,), dtype=torch.int64,
                                 device=dev)
+        self.ls = None
+        if dev.type == "cuda":
+            self.ls = torch.zeros((graph_loop.LS,), dtype=torch.int64,
+                                  device=dev)
+            self.F.ls_stamp = functools.partial(graph_loop.stamp, self.ls)
         self.phases = None
         if profiling.enabled() and dev.type == "cuda":
             self.phases = torch.zeros((1 + len(PHASES),), dtype=torch.int64,
@@ -623,6 +637,8 @@ class _Entry(_Captured):
         yield from self.st.values()
         yield from (self.exps, self.max_total, self.active, self.flag)
         yield from self.stamps()
+        if self.ls is not None:
+            yield self.ls
 
     def stamps(self) -> list:
         """The device tensors :func:`settle` reads: the counters, the
@@ -712,7 +728,7 @@ class _Entry(_Captured):
                 slot = (self.slot if _SLOTS is None
                         else _SLOTS[len(_PARTS) - 1])
                 graph_loop.insert(self.graph.raw_cuda_graph(), self.flag,
-                                  self.counts, slot)
+                                  self.counts, slot, self.ls)
                 return
             with profiling.span("loop", card=dev, lanes=self.F.lb.shape[0]):
                 if self.graph is None:
@@ -721,7 +737,8 @@ class _Entry(_Captured):
                     self.looped = torch.cuda.CUDAGraph()
                     with torch.cuda.graph(self.looped):
                         graph_loop.insert(self.graph.raw_cuda_graph(),
-                                          self.flag, self.counts, self.slot)
+                                          self.flag, self.counts, self.slot,
+                                          self.ls)
                 self.looped.replay()
         COUNTS["loop_graphs"] += 1
         _UNREAD[self] = None

@@ -180,20 +180,23 @@ def test_settle_reads_slots_once():
     prog.slots = torch.zeros((2, graph_loop.SLOT), dtype=torch.int64)
     saved = dict(trip_graph.COUNTS)
     try:
-        # two runs: position 0 ran 5 trips in 700 ns, position 1 none
-        prog.slots[0] = torch.tensor([99, 700, 5, 2])
-        prog.slots[1] = torch.tensor([99, 40, 0, 2])
+        # two runs: position 0 ran 5 trips in 700 ns, 420 of them in its
+        # line searches, position 1 none
+        prog.slots[0] = torch.tensor([99, 700, 5, 2, 420])
+        prog.slots[1] = torch.tensor([99, 40, 0, 2, 0])
         trip_graph._UNREAD[prog] = None
         trip_graph.settle()
         loops = trip_graph.LAST_READ["loops"]
-        assert [(r["position"], r["lanes"], r["runs"], r["trips"], r["ns"])
-                for r in loops] == [(0, 64, 2, 5, 700), (1, 64, 2, 0, 40)]
+        assert [(r["position"], r["lanes"], r["runs"], r["trips"], r["ns"],
+                 r["ls_ns"]) for r in loops] == [(0, 64, 2, 5, 700, 420),
+                                                 (1, 64, 2, 0, 40, 0)]
         assert loops[0]["body"] == "<lambda>"
-        prog.slots[0] = torch.tensor([120, 1000, 8, 3])
+        prog.slots[0] = torch.tensor([120, 1000, 8, 3, 600])
         trip_graph._UNREAD[prog] = None
         trip_graph.settle()
-        assert [(r["position"], r["runs"], r["trips"], r["ns"])
-                for r in trip_graph.LAST_READ["loops"]] == [(0, 1, 3, 300)]
+        assert [(r["position"], r["runs"], r["trips"], r["ns"], r["ls_ns"])
+                for r in trip_graph.LAST_READ["loops"]] == [
+                    (0, 1, 3, 300, 180)]
         trip_graph.settle()  # nothing unread: the last read stays
         assert len(trip_graph.LAST_READ["loops"]) == 1
     finally:
@@ -210,18 +213,20 @@ def test_settle_reads_an_entrys_phases(monkeypatch):
                        al_sqp.init_multipliers(tn, bd))
     entry = trip_graph._Entry(F, cfg, st)
     assert entry.phases is None and entry.F.stamp is None  # not traced
+    assert entry.ls is None and entry.F.ls_stamp is None  # not on a card
     entry.phases = torch.zeros(1 + len(al_sqp.PHASES), dtype=torch.int64)
     saved = (dict(trip_graph.COUNTS), graph_loop.LAUNCHES, graph_loop.TRIPS)
     monkeypatch.setattr(entry, "_replayed", lambda n: None)
     try:
         entry.counts.copy_(torch.tensor([4, 3]))
-        entry.slot.copy_(torch.tensor([7, 900, 3, 1]))
+        entry.slot.copy_(torch.tensor([7, 900, 3, 1, 310]))
         entry.phases.copy_(torch.tensor([5, 100, 200, 50, 300, 150]))
         trip_graph._UNREAD[entry] = None
         trip_graph.settle()
         (loop,) = trip_graph.LAST_READ["loops"]
         assert (loop["body"], loop["position"], loop["lanes"],
-                loop["trips"], loop["ns"]) == ("loop", 0, 2, 3, 900)
+                loop["trips"], loop["ns"], loop["ls_ns"]) == (
+                    "loop", 0, 2, 3, 900, 310)
         (ph,) = trip_graph.LAST_READ["phases"]
         assert ph == dict(lanes=2, trips=3, ns=dict(
             gradient=100, assembly=200, kkt=50, line_search=300,
@@ -229,6 +234,35 @@ def test_settle_reads_an_entrys_phases(monkeypatch):
     finally:
         trip_graph.COUNTS.update(saved[0])
         graph_loop.LAUNCHES, graph_loop.TRIPS = saved[1:]
+
+
+@pytest.mark.parametrize("chord_steps", [0, 1])
+def test_line_search_stamps_bracket_each_line_search(chord_steps):
+    """A trip's line-search stamps (-1 at its start, 0 at its end) sit
+    between the kkt's close and the line search's close of the phase
+    stamps, once for the full step and once for each chord step, and
+    change nothing the trip computes."""
+    tv, tn = problems.canonical_ocp_2d()
+    td, _ = tv.to_device(device="cpu")
+    bd = al_sqp.tree_map(lambda a: a[None].expand((2,) + a.shape), td)
+    cfg = al_sqp.SolverConfig(max_total=4, chord_steps=chord_steps)
+    F = al_sqp._ALFuncs(tn, cfg, bd)
+    st = al_sqp._start(F, cfg, al_sqp.map_lanes(tn.initial_guess, bd),
+                       al_sqp.init_multipliers(tn, bd))
+    plain, stamped = (trip_graph._Entry(F, cfg, st) for _ in range(2))
+    calls = []
+    stamped.F.stamp = lambda ph: calls.append(("phase", ph))
+    stamped.F.ls_stamp = lambda ph: calls.append(("ls", ph))
+    plain.step()
+    stamped.step()
+    for k, v in plain.st.items():
+        assert torch.equal(v, stamped.st[k]), k
+    ls = [i for i, c in enumerate(calls) if c[0] == "ls"]
+    assert [calls[i] for i in ls] == [("ls", -1), ("ls", 0)] * (
+        1 + chord_steps)
+    for a, b in zip(ls[::2], ls[1::2]):
+        assert b == a + 1 and calls[b + 1] == ("phase", 3)
+    assert calls[ls[0] - 1] == ("phase", 2)
 
 
 def _ctx(fleet=True, trips=8, ops=2, seconds=1.0, solve_ms=(5.0, 7.0)):
