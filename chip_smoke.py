@@ -11,9 +11,10 @@ result line:
 
 1. device  — CUDA must be available; the card's name and power limit;
 2. build   — compile the KKT kernel (``etol_tpu_torch/csrc/bt_solve.cu``),
-             the device loop (``etol_tpu_torch/csrc/graph_loop.cu``) and
-             the step coupling's kernel
-             (``etol_tpu_torch/csrc/hs_coupling.cu``) with nvcc from this
+             the device loop (``etol_tpu_torch/csrc/graph_loop.cu``), the
+             step coupling's kernel
+             (``etol_tpu_torch/csrc/hs_coupling.cu``) and the line search's
+             (``etol_tpu_torch/csrc/ls_candidates.cu``) with nvcc from this
              checkout, one nvcc each at once, and load them;
 3. kernel  — the two kernels of the source (the shared-memory one the
              paths launch wherever a lane's factor fits a block, and the
@@ -48,7 +49,25 @@ result line:
              not checked here; the kernel and the plain version timed
              at the main path's shapes (each a replay of a CUDA graph),
              beside the kernel's bound, and the non-view aten ops and
-             hand-written launches of one uas_2d trip on each route;
+             hand-written launches of one uas_2d trip on each route; then
+             the line search's candidate kernel (``ops/ls_candidates``)
+             against the plain candidate pass at every one of those
+             shapes of a separable family (``LS_GRIDS``: ocp_2d_ex1 at
+             (33, 4), pm3d at (41, 6), the dry run's single integrator),
+             from a state two plain trips from the cold start with its
+             multipliers redrawn: each candidate's AL value and decrease
+             within LS_TOL of its terms' magnitudes, its point bitwise,
+             the pick the plain route's on every lane no such difference
+             can move (both rules), the chosen step's defects and rows; a
+             later phase fails if it launched this kernel at a shape not
+             checked here, and the main, ladder, facade, exact and fleet
+             phases hold its launches to two a trip where the route takes
+             the problem (ocp_2d_ex1, pm3d) and none elsewhere; the
+             kernel, the route's pass (the candidates' launch, the cost
+             and the chosen launch) and the plain pass (with the chosen
+             step's gathers) timed at each of
+             those shapes beside the kernel's bound, and one ocp_2d_ex1
+             trip's ops on each route;
 4. main    — the port's main path on the default device: ``uas_2d`` N=50,
              B=2048, shooting seeds, the staged cold solve, the obstacle
              audit, and the warm fleet re-solve on x0 + 0.01; the kernel's
@@ -415,12 +434,36 @@ HS_CHECKED = None
 # HS_PLAIN_INNER calls; the batch of the per-trip op count
 HS_INNER, HS_PLAIN_INNER, HS_COUNT_B = 10, 2, 64
 
+# the line search's candidate kernel (ops/ls_candidates): the candidates
+# each separable family on the paths runs, by (K, w): ocp_2d_ex1 and the
+# dry run's single integrator at the default ls_grid, pm3d at the
+# registry's 16; the limit on |kernel - plain| over the sum of the
+# magnitudes of a candidate's terms (its value's and its decrease's:
+# float32 sums in another order, 4.1e-7 at most on the host build of its
+# arithmetic, tests/test_torch_ls_candidates.py, 1.8e-6 on an H100 at the
+# rescue's shape); the redrawn defect
+# multipliers' range (+-), the inequality multipliers' (0 to) and rho's
+# (log-uniform); the (K, w, n, B) it was held at, None until the kernel
+# phase has run
+LS_GRIDS = {(33, 4): 24, (41, 6): 16, (DRYRUN_NSTEPS + 1, 4): 24,
+            (LONG_NSTEPS + 1, 4): 24, (16, 4): 24}
+LS_TOL = 1e-5
+LS_LAM, LS_MU, LS_RHO = 5.0, 2.0, (10.0, 1e4)
+LS_CHECKED = None
+# timed at every checked shape: the kernel in a graph of LS_INNER
+# launches, the plain pass of LS_PLAIN_INNER calls; the batch of the
+# per-trip op count
+LS_INNER, LS_PLAIN_INNER, LS_COUNT_B = 10, 2, 64
+# its launches by (K, w, n, B) at the last reset_counts
+LS_BASE = {}
+
 CARD = None
 # the solver loop's module (etol_tpu_torch.solve.trip_graph) and the
 # device loop's (etol_tpu_torch.ops.graph_loop), once built
 TG = GL = None
 # the step coupling's kernel's module (etol_tpu_torch.ops.hs_coupling)
-HS = None
+# and the line search's (etol_tpu_torch.ops.ls_candidates)
+HS = LS = None
 # the phases whose replay route runs idle trips past a stop (a run of
 # any other phase with one fails: every loop there is the device loop)
 REPLAY_PHASES = ("loop",)
@@ -592,11 +635,13 @@ def path_shapes(bench_scaling):
     return shapes
 
 
-def assert_checked(path, launches_by):
+def assert_checked(path, launches_by, ls_by=None):
     """Fail if ``path`` launched the kernel at a (K, w, B) that the kernel
     phase did not hold against the plain version, or the step coupling's
     kernel at one (since the process started) that it did not hold
-    against ``_pair_coupling``."""
+    against ``_pair_coupling``, or the line search's at a (K, w, n, B)
+    (``ls_by``, by default its launches since the process started) that it
+    did not hold against the plain candidate pass."""
     if CHECKED is None:
         return
     missed = sorted({key[1:] for key in launches_by} - CHECKED)
@@ -604,11 +649,17 @@ def assert_checked(path, launches_by):
         raise AssertionError(
             f"{path}: kernel launches at {missed}, shapes the kernel phase "
             "did not compare with the plain version")
-    missed = sorted(set(HS.LAUNCHES_BY) - HS_CHECKED)
+    missed = sorted(set(HS.TALLY.by) - HS_CHECKED)
     if missed:
         raise AssertionError(
             f"{path}: step coupling launches at {missed}, shapes the "
             "kernel phase did not compare with _pair_coupling")
+    missed = sorted(set(LS.TALLY.by if ls_by is None else ls_by)
+                    - LS_CHECKED)
+    if missed:
+        raise AssertionError(
+            f"{path}: line search kernel launches at {missed}, shapes the "
+            "kernel phase did not compare with the plain candidate pass")
 
 
 def takes(bt_cuda, variant, K, w, B):
@@ -938,16 +989,321 @@ def hs_trip_ops(torch):
     for route in ("plain", "kernel"):
         G = copy.copy(F)
         G.coupling = route
-        before = HS.LAUNCHES, bt_cuda.LAUNCHES
+        before = HS.TALLY.count, bt_cuda.TALLY.count
         with Count() as count:
             al_sqp._trip(G, cfg, st, exps, active)
         torch.cuda.synchronize()
-        hs, kkt = HS.LAUNCHES - before[0], bt_cuda.LAUNCHES - before[1]
+        hs, kkt = HS.TALLY.count - before[0], bt_cuda.TALLY.count - before[1]
         out[route] = dict(aten_ops=count.ops, hs_launches=hs,
                           kkt_launches=kkt, launches=count.ops + hs + kkt)
         say("kernel", f"one uas_2d trip at B={HS_COUNT_B}, coupling "
                       f"{route}: {count.ops} non-view aten ops, {hs} step "
                       f"coupling and {kkt} KKT kernel launches")
+    return out
+
+
+def ls_family(K, w):
+    """One problem of the separable family at (K, w) on the card, (nlp,
+    data): ocp_2d_ex1.xml through the facade (33, 4), pm3d's
+    point_mass_3d (41, 6), the dry run's long-horizon single integrator
+    (w = 4 at the other horizons)."""
+    from etol_tpu_torch import TrajectoryOptimizer, cli
+    from etol_tpu_torch.models import dynamics, problems
+    from etol_tpu_torch.parallel import dryrun
+
+    if (K, w) == (33, 4):
+        topt = TrajectoryOptimizer()
+        topt.load_configs(cli.default_config("ocp_2d_ex1.xml"))
+        topt.set_dynamics(dynamics.single_integrator)
+        topt.set_objective(lambda x, u, t, d: u[0] ** 2 + u[1] ** 2)
+        topt.setup()
+        return topt.nlp, topt.data
+    if (K, w) == (41, 6):
+        vgp, nlp = problems.point_mass_3d(nsteps=K - 1)
+        return nlp, vgp.to_device()[0]
+    nlp, data, _ = dryrun.horizon_problem(K - 1, "cuda")
+    return nlp, data
+
+
+def ls_batch(torch, K, w, n, B, seed):
+    """The family's problem over B lanes, starts moved within +-0.05, a
+    loop state two plain-route trips from the cold start with its
+    multipliers redrawn (so that every AL term counts), and the pass's
+    inputs there: (F, cfg, st, grad, p, ref, exps); F takes the kernel
+    route."""
+    import copy
+    import math
+
+    from etol_tpu_torch.core.problem import batch_tile, map_lanes
+    from etol_tpu_torch.solve import al_sqp
+
+    nlp, one = ls_family(K, w)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    data = batch_tile(one, B)
+    data = dataclasses.replace(
+        data, x0=data.x0 + 0.1 * (u(*data.x0.shape) - 0.5))
+    cfg = al_sqp.SolverConfig(ls_grid=n)
+    F = al_sqp._ALFuncs(nlp, cfg, data)
+    if F.line_search != "kernel":
+        raise AssertionError(f"the family at {(K, w, B)} on the card took "
+                             "the plain line search")
+    P = copy.copy(F)
+    P.line_search = "plain"
+    st = al_sqp._start(P, cfg, map_lanes(nlp.initial_guess, data),
+                       al_sqp.init_multipliers(nlp, data))
+    exps = al_sqp._exponents(cfg, F.dtype, F.lb.device)
+    for _ in range(2):
+        st = al_sqp._trip(P, cfg, st, exps, al_sqp._active(cfg, st, 10**6))
+    st["lam_def"] = LS_LAM * (2.0 * u(*st["lam_def"].shape) - 1.0)
+    st["mu"] = LS_MU * u(*st["mu"].shape)
+    lo, hi = math.log(LS_RHO[0]), math.log(LS_RHO[1])
+    st["rho"] = torch.exp(lo + (hi - lo) * u(B))
+    m = (st["Z"], st["lam_def"], st["lam_eq"], st["mu"], st["rho"])
+    grad = F.al_grad(*m)
+    p, _ = F.direction(st["Z"], grad, *m[1:], st["lm"], st["g"])
+    ref = F.al_from_parts(st["cost"], st["cd"], st["ce"], st["g"], *m[1:])
+    return F, cfg, st, grad, p, ref, exps
+
+
+def ls_plain(F, st, grad, p, exps):
+    """The plain route's candidate pass as ``al_sqp._body`` runs it:
+    (Zc, valc, decc, cdc, gc, costc)."""
+    import torch
+
+    Z = st["Z"]
+    Zc = torch.clamp(
+        Z[:, None] + (0.5 ** exps)[None, :, None, None] * p[:, None],
+        F.lb[:, None], F.ub[:, None])
+    (cdc, cec, gc), costc = F.candidate_residuals(Zc)
+    valc = F.al_from_parts(costc, cdc, cec, gc, st["lam_def"][:, None],
+                           st["lam_eq"][:, None], st["mu"][:, None],
+                           st["rho"][:, None])
+    decc = torch.sum(grad[:, None] * (Zc - Z[:, None]), dim=(2, 3))
+    return Zc, valc, decc, cdc, gc, costc
+
+
+def ls_route(F, st, grad, p, exps):
+    """The kernel route's pass: (Zc, valc, decc), the cost added."""
+    Zc, part, dec = F.ls_kernel(st["Z"], p, grad, 0.5 ** exps,
+                                st["lam_def"], st["mu"], st["rho"])
+    return Zc, F.candidate_cost(Zc) + part, dec
+
+
+def ls_magnitudes(torch, st, grad, Zc, cdc, gc, costc):
+    """The sums of the magnitudes of each candidate's terms, [B, n]: 1 +
+    |cost| + |lam c| + rho/2 c^2 + (s^2 + mu^2)/(2 rho) for its value, 1 +
+    |grad (Zc - Z)| for its decrease."""
+    rho, mu = st["rho"][:, None], st["mu"][:, None]
+    s = torch.clamp(mu + rho[..., None, None] * gc, min=0.0)
+    val = (1.0 + costc.abs()
+           + (st["lam_def"][:, None] * cdc).abs().sum(dim=(-2, -1))
+           + 0.5 * rho * (cdc ** 2).sum(dim=(-2, -1))
+           + (0.5 / rho) * (s * s + mu * mu).sum(dim=(-2, -1)))
+    dec = 1.0 + (grad[:, None] * (Zc - st["Z"][:, None])).abs().sum(
+        dim=(-2, -1))
+    return val, dec
+
+
+def ls_pick(torch, rule, c1, valc, decc, ref):
+    """The Armijo test and the pick of ``al_sqp._body`` under ``rule``:
+    (sel, the margins ref + c1 dec - val)."""
+    margin = ref[:, None] + c1 * decc - valc
+    ok = (margin >= 0) & torch.isfinite(valc) & (decc < 0.0)
+    if rule == "best":
+        sel = torch.argmin(torch.where(
+            ok, valc, torch.full_like(valc, float("inf"))), dim=1)
+    else:
+        sel = torch.argmax(ok.to(torch.int32), dim=1)
+    return sel, margin
+
+
+def ls_decided(torch, rule, sel, valc, decc, margin, scale, dtol):
+    """Lanes whose pick no difference within ``scale`` of a candidate's
+    value and ``dtol`` of its decrease can move: for "first" every
+    candidate before the pick clearly fails and the pick clearly passes;
+    for "best" the pick clearly passes and every other candidate clearly
+    fails or lies more than twice the tolerance above it; where none
+    passes, every candidate clearly fails."""
+    passes = (margin > scale) & (decc < -dtol) & torch.isfinite(valc)
+    fails = (margin < -scale) | (decc > dtol) | ~torch.isfinite(valc)
+    lanes = torch.arange(valc.shape[0], device=valc.device)
+    j = torch.arange(valc.shape[1], device=valc.device)[None, :]
+    if rule == "best":
+        others = (fails | (valc > valc[lanes, sel][:, None] + 2 * scale)
+                  | (j == sel[:, None]))
+    else:
+        others = fails | (j >= sel[:, None])
+    return fails.all(dim=1) | (passes[lanes, sel] & others.all(dim=1))
+
+
+def check_ls(torch, shapes):
+    """Phase 3, the line search's kernel: against the plain candidate pass
+    at each of ``shapes`` of a separable family (LS_GRIDS), each
+    candidate's AL value and decrease within LS_TOL of its terms'
+    magnitudes, its point bitwise, the pick the plain route's on every
+    lane no such difference can move (under both rules), and the chosen
+    step's point, defects and rows at the plain pick; then timed beside
+    the plain pass at each of those shapes, and one ocp_2d_ex1 trip's ops
+    counted on each route; returns (the largest difference over its
+    magnitude, times by shape, the trip's counts)."""
+    global LS_CHECKED
+    LS_CHECKED = set()
+    worst = 0.0
+    for i, (K, w, B) in enumerate(s for s in shapes if s[:2] in LS_GRIDS):
+        n = LS_GRIDS[(K, w)]
+        F, cfg, st, grad, p, ref, exps = ls_batch(torch, K, w, n, B,
+                                                  seed=K + B + i)
+        Zc, valc, decc, cdc, gc, costc = ls_plain(F, st, grad, p, exps)
+        kZc, kval, kdec = ls_route(F, st, grad, p, exps)
+        mval, mdec = ls_magnitudes(torch, st, grad, Zc, cdc, gc, costc)
+        err = max(float(((kval - valc).abs() / mval).max()),
+                  float(((kdec - decc).abs() / mdec).max()))
+        picks = {}
+        for rule in ("first", "best"):
+            sel, margin = ls_pick(torch, rule, cfg.ls_c1, valc, decc, ref)
+            ksel, _ = ls_pick(torch, rule, cfg.ls_c1, kval, kdec, ref)
+            decided = ls_decided(torch, rule, sel, valc, decc, margin,
+                                 LS_TOL * mval, LS_TOL * mdec)
+            picks[rule] = (int(decided.sum()), bool(torch.equal(
+                ksel[decided], sel[decided])), sel)
+        sel = picks["first"][2]
+        lanes = torch.arange(B, device="cuda")
+        Zs, cd, g = F.ls_kernel(st["Z"], p, grad, 0.5 ** exps,
+                                st["lam_def"], st["mu"], st["rho"], sel)
+        torch.cuda.synchronize()
+        chosen = [float((a - b).abs().max()) / (1.0 + float(
+            b.abs().max())) if b.numel() else 0.0
+            for a, b in ((cd, cdc[lanes, sel]), (g, gc[lanes, sel]))]
+        same_z = bool(torch.equal(kZc, Zc)) and bool(
+            torch.equal(Zs, Zc[lanes, sel]))
+        say("kernel", f"ls_candidates K={K} w={w} n={n} B={B}: max|diff| / "
+                      f"magnitude {err:.2e} (limit {LS_TOL:.0e}); points "
+                      f"bitwise {same_z}; picks the plain route's on the "
+                      + ", ".join(f"{d} decided lanes of {B} ({rule}): {ok}"
+                                  for rule, (d, ok, _) in picks.items())
+                      + f"; the chosen step's defects and rows "
+                        f"{chosen[0]:.2e} {chosen[1]:.2e}")
+        if not (err <= LS_TOL and same_z and max(chosen) <= LS_TOL
+                and all(ok for _, ok, _ in picks.values())):
+            raise AssertionError(
+                f"ls_candidates disagrees with the plain pass at "
+                f"{(K, w, n, B)}: {err}, {same_z}, {picks}, {chosen}")
+        worst = max(worst, err, *chosen)
+        LS_CHECKED.add((K, w, n, B))
+        del F, st, Zc, valc, decc, cdc, gc, costc, kZc, kval, kdec
+        torch.cuda.empty_cache()
+
+    times = {}
+    for K, w, n, B in sorted(LS_CHECKED, key=lambda s: (s[:2], -s[3])):
+        F, cfg, st, grad, p, ref, exps = ls_batch(torch, K, w, n, B, seed=B)
+        alphas = 0.5 ** exps
+        kargs = (st["Z"], p, grad, alphas, st["lam_def"], st["mu"],
+                 st["rho"])
+        sel = torch.zeros((B,), dtype=torch.int64, device="cuda")
+        lanes = torch.arange(B, device="cuda")
+
+        def route(i):
+            # what _body runs on the kernel route up to the pick's
+            # gathers: the candidates' launch, the cost, the chosen launch
+            Zc, valc, decc = ls_route(F, st, grad, p, exps)
+            return (F.ls_kernel(*kargs, sel), valc[lanes, sel])
+
+        def plain(i):
+            # and on the plain route: the pass and the chosen step's
+            # gathers
+            Zc, valc, decc, cdc, gc, costc = ls_plain(F, st, grad, p, exps)
+            return (Zc[lanes, sel], cdc[lanes, sel], gc[lanes, sel],
+                    valc[lanes, sel])
+
+        sides = {
+            "kernel": (lambda i: F.ls_kernel(*kargs), 20, LS_INNER),
+            "route": (route, 20, LS_INNER),
+            "plain": (plain, 5, LS_PLAIN_INNER)}
+        runs = []
+        # in turns: kernel, route, plain, plain, route, kernel; each a CUDA
+        # graph
+        for side in ("kernel", "route", "plain", "plain", "route",
+                     "kernel"):
+            fn, reps, inner = sides[side]
+            runs.append((side, graph_ms(torch, fn, reps=reps, inner=inner)))
+        o, tr = F.data.obstacles, F.data.tracks
+        ell, pcs, trk = LS._forms(F.nlp)
+        flops, nbytes = LS.cost(
+            K, F.nlp.dims.nx, F.nlp.dims.nu, n, B,
+            E=ell * o.ellipses.shape[1], P=pcs * o.piece_mask.shape[1],
+            H=pcs * o.halfspaces.shape[2], T=trk * tr.radius.shape[1],
+            D=trk * F.track_ctrs.shape[-1])
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / FP32_FLOPS * 1e3
+        t = {side: sum(ms for s_, ms in runs if s_ == side) / 2
+             for side in sides}
+        t.update(bound=max(t_bytes, t_flops),
+                 bound_by="bytes" if t_bytes >= t_flops else "operations",
+                 bytes=nbytes, flops=flops)
+        say("kernel", f"ls_candidates K={K} w={w} n={n} B={B}: "
+                      + ", ".join(f"{side} {ms:.4f} ms" for side, ms in runs)
+                      + f" (CUDA events: median of the replays of a graph; "
+                        f"the candidates' launch and the route's pass (that "
+                        f"launch, the cost, the chosen launch) {LS_INNER} "
+                        f"calls, 20 replays; the plain pass with the "
+                        f"chosen step's gathers {LS_PLAIN_INNER} calls, 5 "
+                        f"replays); route / plain "
+                        f"{t['route'] / t['plain']:.3f}; bound "
+                        f"{t['bound']:.6f} ms by "
+                        f"{t['bound_by']} ({nbytes} B, {flops} flop), "
+                        f"{100 * t['bound'] / t['kernel']:.1f}% of it")
+        times[(K, w, n, B)] = t
+        del F, st
+        torch.cuda.empty_cache()
+    return worst, times, ls_trip_ops(torch)
+
+
+def ls_trip_ops(torch):
+    """One ocp_2d_ex1 trip at LS_COUNT_B lanes from the cold start on each
+    line-search route: the non-view aten ops it dispatches and the
+    hand-written kernels it launches."""
+    import copy
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from etol_tpu_torch.core.problem import batch_tile, map_lanes
+    from etol_tpu_torch.ops import bt_cuda
+    from etol_tpu_torch.solve import al_sqp
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    nlp, one = ls_family(33, 4)
+    data = batch_tile(one, LS_COUNT_B)
+    cfg = al_sqp.SolverConfig()
+    F = al_sqp._ALFuncs(nlp, cfg, data)
+    st = al_sqp._start(F, cfg, map_lanes(nlp.initial_guess, data),
+                       al_sqp.init_multipliers(nlp, data))
+    exps = al_sqp._exponents(cfg, F.dtype, F.lb.device)
+    active = al_sqp._active(cfg, st, cfg.max_outer * cfg.max_inner)
+    out = {}
+    for route in ("plain", "kernel"):
+        G = copy.copy(F)
+        G.line_search = route
+        before = LS.TALLY.count, bt_cuda.TALLY.count
+        with Count() as count:
+            al_sqp._trip(G, cfg, st, exps, active)
+        torch.cuda.synchronize()
+        ls, kkt = LS.TALLY.count - before[0], bt_cuda.TALLY.count - before[1]
+        out[route] = dict(aten_ops=count.ops, ls_launches=ls,
+                          kkt_launches=kkt, launches=count.ops + ls + kkt)
+        say("kernel", f"one ocp_2d_ex1 trip at B={LS_COUNT_B}, line search "
+                      f"{route}: {count.ops} non-view aten ops, {ls} line "
+                      f"search and {kkt} KKT kernel launches")
     return out
 
 
@@ -1030,9 +1386,35 @@ def reset_counts(bt_cuda, cyclic_reduction):
     """Every route's count to 0, just before a path is driven (what the
     device loops ran before is read first, and goes to no path)."""
     TG.settle()
-    bt_cuda.LAUNCHES = 0
-    bt_cuda.LAUNCHES_BY.clear()
-    cyclic_reduction.SOLVES = 0
+    bt_cuda.TALLY.clear()
+    cyclic_reduction.TALLY.clear()
+    LS_BASE.clear()
+    LS_BASE.update(LS.TALLY.by)
+
+
+def ls_gained():
+    """The line search kernel's launches by (K, w, n, B) since the last
+    reset_counts (settled by the caller)."""
+    return {k: v - LS_BASE.get(k, 0) for k, v in LS.TALLY.by.items()
+            if v > LS_BASE.get(k, 0)}
+
+
+def assert_ls_trips(path, kkt_by):
+    """Fail unless the line search kernel launched twice a trip since the
+    last reset_counts at the (K, w) of LS_GRIDS and nowhere else, a trip
+    being a KKT kernel launch at (K, w, B) in ``kkt_by``; returns the
+    launches."""
+    want = {}
+    for (_, K, w, B), n in kkt_by.items():
+        if (K, w) in LS_GRIDS:
+            key = (K, w, LS_GRIDS[(K, w)], B)
+            want[key] = want.get(key, 0) + 2 * n
+    got = ls_gained()
+    if got != want:
+        raise AssertionError(
+            f"{path}: line search kernel launches {got}, expected {want}: "
+            f"two a trip where the route takes the problem, else none")
+    return got
 
 
 def latest(kind):
@@ -1081,13 +1463,13 @@ def graph_side(torch, bt_cuda, cyclic_reduction, label, run, route=None,
         wall_s=wall, trips=c["trips"] + c["eager_trips"],
         idle_trips=c["idle_trips"], captures=c["captures"],
         capture_s=c["capture_s"], programs=c["programs"],
-        launches=bt_cuda.LAUNCHES,
+        launches=bt_cuda.TALLY.count,
         launches_by={"%s_K%d_w%d_B%d" % k: n
-                     for k, n in sorted(bt_cuda.LAUNCHES_BY.items())},
+                     for k, n in sorted(bt_cuda.TALLY.by.items())},
         pool_bytes=TG.pool_bytes(), static_bytes=TG.static_bytes(),
         peak_bytes=torch.cuda.max_memory_allocated() - held)
     side["ms_a_trip"] = 1e3 * wall / max(side["trips"], 1)
-    assert_checked(f"graph {label}", bt_cuda.LAUNCHES_BY)
+    assert_checked(f"graph {label}", bt_cuda.TALLY.by)
     return out, side
 
 
@@ -1643,9 +2025,9 @@ def check_mpc(torch, bench_harness, bt_cuda, cyclic_reduction):
             steps=MPC_STEPS if route == "kernel" else MPC_CR_STEPS,
             pipelined=route == "kernel")
         TG.settle()
-        out["launches"] = bt_cuda.LAUNCHES
-        out["cr_solves"] = cyclic_reduction.SOLVES
-        by = dict(bt_cuda.LAUNCHES_BY)
+        out["launches"] = bt_cuda.TALLY.count
+        out["cr_solves"] = cyclic_reduction.TALLY.count
+        by = dict(bt_cuda.TALLY.by)
         n_ok = out["statuses"].count(1)
         say("mpc", f"uas_2d N={MAIN_NSTEPS}, one problem, kkt_solver="
                    f"{route}: {out['launches']} kernel launches "
@@ -1689,14 +2071,14 @@ def ab_runs(torch, bt_cuda, name, solve, other="scan"):
     runs = {}
     for kkt in ("kernel", other):
         TG.settle()
-        bt_cuda.LAUNCHES_BY.clear()
+        bt_cuda.TALLY.clear()
         t0 = time.perf_counter()
         runs[kkt], trips = solve(kkt)
         torch.cuda.synchronize()
         say("a/b", f"{name} {kkt}: stage trips {list(trips)} in "
                    f"{time.perf_counter() - t0:.1f} s")
         TG.settle()
-        assert_checked(f"{name} a/b ({kkt})", bt_cuda.LAUNCHES_BY)
+        assert_checked(f"{name} a/b ({kkt})", bt_cuda.TALLY.by)
     ab(torch, name, runs, other)
 
 
@@ -1724,20 +2106,20 @@ def check_ladder(torch, bench_scaling, bt_cuda):
     """Phase 9: the ladder's three other models on the default device
     under the registry configs, then their A/B against a plain route;
     returns {name: dict(solved_fraction, ..., launches_by)}."""
+    from etol_tpu_torch.ops import cyclic_reduction
+
     out = {}
     for name, (K, w) in LADDER.items():
         label, nlp, bdata, cfg, stages, _, gen = bench_scaling.prepare(name)
         B = bdata.x0.shape[0]
         if cfg.kkt_solver != "kernel" or bdata.x0.device.type != "cuda":
             raise AssertionError(f"{name}: not the kernel on the card")
-        TG.settle()
-        bt_cuda.LAUNCHES = 0
-        bt_cuda.LAUNCHES_BY.clear()
+        reset_counts(bt_cuda, cyclic_reduction)
         run = bench_scaling.run_config(
             label, nlp, bdata, cfg, stages, reps=0, generator=gen,
             log=lambda line: say("ladder", line))
         TG.settle()
-        launches, by = bt_cuda.LAUNCHES, dict(bt_cuda.LAUNCHES_BY)
+        launches, by = bt_cuda.TALLY.count, dict(bt_cuda.TALLY.by)
         say("ladder", f"{name}: kernel launches {launches} by (variant, K, "
                       f"w, B): {sorted(by.items(), key=lambda kv: -kv[0][3])}")
         res = run["result"]
@@ -1756,10 +2138,14 @@ def check_ladder(torch, bench_scaling, bt_cuda):
         if max(key[3] for key in by) != B:
             raise AssertionError(f"{name}: no launch at the full batch {B}")
         assert_checked(name, by)
+        ls = assert_ls_trips(name, by)
+        say("ladder", f"{name}: line search kernel launches by (K, w, n, "
+                      f"B): {sorted(ls.items(), key=lambda kv: -kv[0][3])}")
         run.pop("result")
         out[name] = dict(run, batch=B, launches=launches, launches_by={
             str(key[3]): n for key, n in sorted(
-                by.items(), key=lambda kv: -kv[0][3])})
+                by.items(), key=lambda kv: -kv[0][3])},
+            ls_launches=sum(ls.values()))
     for name in ("pm20", "pm3d"):
         def solve(kkt, name=name):
             _, nlp, bdata, cfg, stages, _, _ = bench_scaling.prepare(
@@ -1782,7 +2168,7 @@ def warm_ab(torch, bench_scaling, bt_cuda, name):
     _, nlp, bdata, cfg, stages, _, _ = bench_scaling.prepare(
         name, batch=AB_B)
     TG.settle()
-    bt_cuda.LAUNCHES_BY.clear()
+    bt_cuda.TALLY.clear()
     t0 = time.perf_counter()
     cold, trips = al_sqp.solve_batched_staged(
         nlp, cfg, bdata, None, stages, return_stage_trips=True)
@@ -1790,7 +2176,7 @@ def warm_ab(torch, bench_scaling, bt_cuda, name):
     say("a/b", f"{name} kernel, cold: stage trips {list(trips)}, {n_cold} "
                f"of {AB_B} solved in {time.perf_counter() - t0:.1f} s")
     TG.settle()
-    assert_checked(f"{name} a/b (cold)", bt_cuda.LAUNCHES_BY)
+    assert_checked(f"{name} a/b (cold)", bt_cuda.TALLY.by)
     if n_cold < AB_B - 2:
         raise AssertionError(f"{name}: the cold solve left lanes unsolved")
     drift = torch.zeros_like(bdata.x0[0])
@@ -1823,14 +2209,19 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
 
     SOLVED = int(Status.SOLVED)
     out = {}
+    ls_by = out["ls_launches"] = {}
 
-    def counts(path):
+    def counts(path, kkt_route=True):
         """The counts since the last reset, every launch at a checked
-        shape."""
+        shape, and on the KKT kernel's route two line search launches a
+        trip where that route takes the problem."""
         TG.settle()
-        by = dict(bt_cuda.LAUNCHES_BY)
+        by = dict(bt_cuda.TALLY.by)
         assert_checked(f"facade {path}", by)
-        return bt_cuda.LAUNCHES, by, cyclic_reduction.SOLVES
+        if kkt_route:
+            ls_by[path] = sum(assert_ls_trips(f"facade {path}",
+                                              by).values())
+        return bt_cuda.TALLY.count, by, cyclic_reduction.TALLY.count
 
     def by_batch(by):
         return {f"K{k[1]}_w{k[2]}_B{k[3]}": n for k, n in sorted(
@@ -1896,7 +2287,8 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
             lat.append(topt.last_solve_seconds * 1e3)
             statuses.append(int(r.status))
             its.append(int(r.inner_iters))
-        launches, by, cr_solves = counts(f"mpc_step ({route})")
+        launches, by, cr_solves = counts(f"mpc_step ({route})",
+                                         route == "kernel")
         p50 = sorted(lat)[len(lat) // 2]
         mean = sum(lat) / len(lat)
         say("facade", f"{steps} mpc_steps, kkt_solver={route}: statuses "
@@ -1908,6 +2300,10 @@ def check_facade(torch, bt_cuda, cyclic_reduction):
         if statuses != [SOLVED] * steps:
             raise AssertionError(f"mpc_step under {route}: {statuses}")
         n = sum(its)
+        if ls_gained() != {(33, 4, LS_GRIDS[(33, 4)], 1): 2 * n}:
+            raise AssertionError(
+                f"mpc_step under {route}: line search launches "
+                f"{ls_gained()} for {n} iterations, two each")
         want = ((n, 0) if route == "kernel" else (0, n))
         if (launches, cr_solves) != want or (
                 by and set(by) != {("smem", 33, 4, 1)}):
@@ -2076,9 +2472,10 @@ def check_exact(torch, bt_cuda, cyclic_reduction):
 
     def counts(path):
         TG.settle()
-        by = dict(bt_cuda.LAUNCHES_BY)
+        by = dict(bt_cuda.TALLY.by)
         assert_checked(f"exact {path}", by)
-        return bt_cuda.LAUNCHES, by, cyclic_reduction.SOLVES
+        assert_ls_trips(f"exact {path}", by)  # user rows: none
+        return bt_cuda.TALLY.count, by, cyclic_reduction.TALLY.count
 
     def found(mres, seconds, launches, by, cr_solves):
         c = {k: TG.COUNTS[k] - c0[k] for k in c0}
@@ -2319,11 +2716,11 @@ def check_planners(torch, bt_cuda, cyclic_reduction):
         sync()
         secs = time.perf_counter() - t0
         TG.settle()
-        by = dict(bt_cuda.LAUNCHES_BY)
+        by = dict(bt_cuda.TALLY.by)
         iters = int(res.inner_iters)
         found = dict(status=int(res.status), obj=float(res.obj),
-                     iters=iters, seconds=secs, launches=bt_cuda.LAUNCHES,
-                     cr_solves=cyclic_reduction.SOLVES,
+                     iters=iters, seconds=secs, launches=bt_cuda.TALLY.count,
+                     cr_solves=cyclic_reduction.TALLY.count,
                      launches_by={"K%d_w%d_B%d" % k[1:]: n
                                   for k, n in sorted(by.items())})
         say("planners", f"{name}-seeded al_sqp.solve, kkt_solver=kernel: "
@@ -2389,14 +2786,15 @@ def check_fleet(torch, bt_cuda, cyclic_reduction):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         TG.settle()
-        by = dict(bt_cuda.LAUNCHES_BY)
+        by = dict(bt_cuda.TALLY.by)
         assert_checked(f"fleet {label}", by)
+        assert_ls_trips(f"fleet {label}", by)  # separation rows: none
         if res.z.device.type != "cuda" or not bool(
                 torch.isfinite(res.z).all()):
             raise AssertionError(f"fleet {label}: z is not finite on the "
                                  "card")
-        return res, dict(seconds=secs, launches=bt_cuda.LAUNCHES,
-                         cr_solves=cyclic_reduction.SOLVES,
+        return res, dict(seconds=secs, launches=bt_cuda.TALLY.count,
+                         cr_solves=cyclic_reduction.TALLY.count,
                          launches_by={"K%d_w%d_B%d" % k[1:]: n
                                       for k, n in sorted(by.items())})
 
@@ -2513,9 +2911,9 @@ def check_parallel(torch, bt_cuda, btridiag, cyclic_reduction):
 
     def counts(path):
         TG.settle()
-        by = dict(bt_cuda.LAUNCHES_BY)
+        by = dict(bt_cuda.TALLY.by)
         assert_checked(f"parallel {path}", by)
-        return bt_cuda.LAUNCHES, {"K%d_w%d_B%d" % k[1:]: n
+        return bt_cuda.TALLY.count, {"K%d_w%d_B%d" % k[1:]: n
                                   for k, n in sorted(by.items())}, by
 
     # -- SPIKE against the direct launch and the plain version, B=1
@@ -2591,7 +2989,7 @@ def check_parallel(torch, bt_cuda, btridiag, cyclic_reduction):
     need = [("smem",) + shape for shape in
             spike_shapes(DRYRUN_NSTEPS + 1, 4, DRYRUN_N)
             + ((DRYRUN_NSTEPS + 1, 4, 1), (8, 5, 8))]
-    if not all(by.get(key) for key in need) or cyclic_reduction.SOLVES:
+    if not all(by.get(key) for key in need) or cyclic_reduction.TALLY.count:
         raise AssertionError(f"the dry run's launches {by}: every KKT solve "
                              f"should be the kernel, at {need}")
     out["dryrun"] = dry
@@ -2656,14 +3054,20 @@ def check_parallel(torch, bt_cuda, btridiag, cyclic_reduction):
         say("parallel", f"rank {rank} of {DIST_RANKS} on cuda:0 over gloo: "
                         f"{found}")
         err = max(abs(a - b) for a, b in zip(found["obj"], obj))
-        missed = {tuple(int(v) for v in re.findall(r"\d+", k))
-                  for k in found["launches_by"]} - CHECKED
+
+        def shapes(by):
+            return {tuple(int(v) for v in re.findall(r"\d+", k)): n
+                    for k, n in by.items()}
+
+        assert_checked(f"parallel rank {rank}",
+                       {("rank",) + k: n
+                        for k, n in shapes(found["launches_by"]).items()},
+                       shapes(found["ls_launches_by"]))
         if (found["statuses"] != [1] * (DIST_B // DIST_RANKS)
                 or not err <= 1e-4 or found["warm_solved"] != 1.0
                 or found["horizon"]["status"] != 1
-                or found["launches"] <= 0 or missed):
-            raise AssertionError(f"rank {rank}: |dobj| {err}, unchecked "
-                                 f"launch shapes {missed}: {found}")
+                or found["launches"] <= 0):
+            raise AssertionError(f"rank {rank}: |dobj| {err}: {found}")
         found["max_abs_dobj"] = err
         ranks.append(found)
     out["distributed"] = dict(obj_single_process=obj, ranks=ranks)
@@ -2712,10 +3116,10 @@ def check_long_horizon(torch, bt_cuda, cyclic_reduction, counts):
             viol_in=float(r.viol_in), seconds=seconds, launches=launches,
             launches_by={"%s_K%d_w%d_B%d" % key: n
                          for key, n in sorted(by.items())},
-            cr_solves=cyclic_reduction.SOLVES)
+            cr_solves=cyclic_reduction.TALLY.count)
         say("parallel", f"long horizon K={K} w=4 B=1 {name}: "
                         f"{out[name]}")
-        if set(by) != want[name] or cyclic_reduction.SOLVES:
+        if set(by) != want[name] or cyclic_reduction.TALLY.count:
             raise AssertionError(f"long horizon {name}: launches {by}, "
                                  f"expected every one at {want[name]}")
         if out[name]["status"] != 1:
@@ -2751,14 +3155,14 @@ def check_variants(torch, bench_harness, bt_cuda, cyclic_reduction):
 
     def counts(path):
         TG.settle()
-        by = dict(bt_cuda.LAUNCHES_BY)
+        by = dict(bt_cuda.TALLY.by)
         assert_checked(f"variants {path}", by)
-        if bt_cuda.LAUNCHES <= 0 or cyclic_reduction.SOLVES:
+        if bt_cuda.TALLY.count <= 0 or cyclic_reduction.TALLY.count:
             raise AssertionError(
-                f"variants {path}: {bt_cuda.LAUNCHES} kernel launches and "
-                f"{cyclic_reduction.SOLVES} cyclic-reduction solves; every "
+                f"variants {path}: {bt_cuda.TALLY.count} kernel launches and "
+                f"{cyclic_reduction.TALLY.count} cyclic-reduction solves; every "
                 "KKT solve should be a launch")
-        return bt_cuda.LAUNCHES, {f"K{k[1]}_w{k[2]}_B{k[3]}": n for k, n in
+        return bt_cuda.TALLY.count, {f"K{k[1]}_w{k[2]}_B{k[3]}": n for k, n in
                                   sorted(by.items(), key=lambda kv: -kv[0][3])}
 
     # -- uas_2d N=50 at VARIANT_B: the bench's problem and seeds, made
@@ -2900,21 +3304,24 @@ def main(phases=PHASES):
     from etol_tpu_torch.ops import graph_loop
     from etol_tpu_torch.solve import trip_graph
 
-    from etol_tpu_torch.ops import hs_coupling
+    from etol_tpu_torch.ops import hs_coupling, ls_candidates
 
-    global TG, GL, HS
-    TG, GL, HS = trip_graph, graph_loop, hs_coupling
-    # the three sources at once, one nvcc each
+    global TG, GL, HS, LS
+    TG, GL, HS, LS = trip_graph, graph_loop, hs_coupling, ls_candidates
+    # the four sources at once, one nvcc each
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(bt_cuda.build), pool.submit(graph_loop.build),
-                  pool.submit(hs_coupling.build)]
+                  pool.submit(hs_coupling.build),
+                  pool.submit(ls_candidates.build)]
         for done in builds:
             done.result()
-    say("build", f"bt_solve.cu, graph_loop.cu and hs_coupling.cu built and "
-                 f"loaded in {time.perf_counter() - t0:.2f} s (nvcc "
-                 f"{bt_cuda.BUILD_SECONDS} s, {graph_loop.BUILD_SECONDS} s "
-                 f"and {hs_coupling.BUILD_SECONDS} s)")
+    say("build", f"bt_solve.cu, graph_loop.cu, hs_coupling.cu and "
+                 f"ls_candidates.cu built and loaded in "
+                 f"{time.perf_counter() - t0:.2f} s (nvcc "
+                 f"{bt_cuda.BUILD_SECONDS} s, {graph_loop.BUILD_SECONDS} s, "
+                 f"{hs_coupling.BUILD_SECONDS} s and "
+                 f"{ls_candidates.BUILD_SECONDS} s)")
     nvcc = subprocess.run([bt_cuda._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     versions = graph_loop.VERSIONS
@@ -2941,6 +3348,16 @@ def main(phases=PHASES):
         elif entry and ("registers" in line or "spill" in line):
             info = line.replace("ptxas info    :", "").strip()
             say("build", f"{entry}: {info}")
+    entry = None
+    for line in ls_candidates.BUILD_LOG.splitlines():
+        m = re.search(r"ls_candidates_kernelILi(\d)ELi(\d)ELi(\d+)ELb(\d)E",
+                      line)
+        if m and "Compiling entry function" in line:
+            entry = (f"ls_candidates nx={m.group(1)} nu={m.group(2)} "
+                     f"G={m.group(3)} chosen={m.group(4)}")
+        elif entry and ("registers" in line or "spill" in line):
+            info = line.replace("ptxas info    :", "").strip()
+            say("build", f"{entry}: {info}")
     clock.lap("build")
 
     # 3. the kernels vs plain, and their times
@@ -2950,22 +3367,24 @@ def main(phases=PHASES):
         hs_err, hs_times, hs_ops = check_hs(
             torch, tuple(dict.fromkeys(tuple(shapes) + LONG_SHAPES
                                        + RAGGED_SHAPES)))
+        ls_err, ls_times, ls_ops = check_ls(
+            torch, tuple(dict.fromkeys(tuple(shapes) + LONG_SHAPES)))
         clock.lap("kernel")
 
     # 4. main path, on the default device
     if "main" in phases:
         TG.settle()
-        bt_cuda.LAUNCHES = 0
-        bt_cuda.LAUNCHES_BY.clear()
+        bt_cuda.TALLY.clear()
         c0 = (TG.COUNTS["programs"], TG.COUNTS["trips"], GL.LAUNCHES,
               GL.TRIPS)
-        hs0 = HS.LAUNCHES, dict(HS.LAUNCHES_BY)
+        hs0 = HS.TALLY.count, dict(HS.TALLY.by)
+        ls0 = LS.TALLY.count
         out = bench_harness.main_path(MAIN_B, MAIN_NSTEPS)
         TG.settle()
-        launches = bt_cuda.LAUNCHES
-        launches_by = dict(bt_cuda.LAUNCHES_BY)
+        launches = bt_cuda.TALLY.count
+        launches_by = dict(bt_cuda.TALLY.by)
         main_hs = {k: n - hs0[1].get(k, 0)
-                   for k, n in HS.LAUNCHES_BY.items()
+                   for k, n in HS.TALLY.by.items()
                    if n > hs0[1].get(k, 0)}
         main_loop = dict(programs=TG.COUNTS["programs"] - c0[0],
                          trips=TG.COUNTS["trips"] - c0[1],
@@ -2973,12 +3392,16 @@ def main(phases=PHASES):
                          loop_trips=GL.TRIPS - c0[3])
         check_main(torch, out, launches, launches_by, main_loop)
         say("main", f"hs_coupling launches during the main path: "
-                    f"{HS.LAUNCHES - hs0[0]}; by (K, w, batch): "
+                    f"{HS.TALLY.count - hs0[0]}; by (K, w, batch): "
                     f"{sorted(main_hs.items(), key=lambda kv: -kv[0][2])}")
         if main_hs != {k[1:]: n for k, n in launches_by.items()}:
             raise AssertionError(
                 f"the main path launched the step coupling {main_hs}, the "
                 f"KKT kernel {launches_by}: one of each a trip")
+        if LS.TALLY.count != ls0:
+            raise AssertionError(
+                f"the main path (Hermite-Simpson) launched the line search "
+                f"kernel {LS.TALLY.count - ls0} times")
         clock.lap("main")
 
     # 4b. the bench's seeds on their program's graph
@@ -3028,15 +3451,14 @@ def main(phases=PHASES):
     # own, well before the last two
     if "bench" in phases:
         TG.settle()
-        bt_cuda.LAUNCHES = 0
-        bt_cuda.LAUNCHES_BY.clear()
+        bt_cuda.TALLY.clear()
         bench_line = bench_harness.bench(
             MAIN_B, MAIN_NSTEPS, iters=1,
             mpc=mpc["kernel"] if "mpc" in phases else None)
         print(json.dumps(bench_line), flush=True)
         TG.settle()
-        bench_launches = bt_cuda.LAUNCHES
-        assert_checked("bench", bt_cuda.LAUNCHES_BY)
+        bench_launches = bt_cuda.TALLY.count
+        assert_checked("bench", bt_cuda.TALLY.by)
         ex = bench_line["extras"]
         say("bench", f"{bench_line['value']} solved solves/s at B={MAIN_B} "
                      f"(solved {ex['solved_fraction']:.4f}), warm "
@@ -3059,13 +3481,13 @@ def main(phases=PHASES):
     # 10. the library's entry point; its JSON line goes out before the
     # last two
     if "facade" in phases:
-        hs0 = HS.LAUNCHES
+        hs0 = HS.TALLY.count
         facade = check_facade(torch, bt_cuda, cyclic_reduction)
         TG.settle()
-        if HS.LAUNCHES != hs0:
+        if HS.TALLY.count != hs0:
             raise AssertionError(
                 f"the facade's ocp_2d_ex1 and mip_2d_ex1 solves launched the "
-                f"step coupling {HS.LAUNCHES - hs0} times: their schemes "
+                f"step coupling {HS.TALLY.count - hs0} times: their schemes "
                 "take the plain routes")
         say("facade", "no step coupling launch (trapezoidal and euler)")
         print(json.dumps({"phase": "facade", "card": CARD, **facade}),
@@ -3224,6 +3646,28 @@ def main(phases=PHASES):
         "library_ms": None,
         "by_shape": {shape_key(shape): t for shape, t in hs_times.items()},
         "trip_ops": hs_ops,
+    }, {
+        "name": "ls_candidates",
+        "route": "cuda",
+        "source": "etol_tpu_torch/csrc/ls_candidates.cu",
+        # no TPU kernel: the JAX package leaves the line search's candidate
+        # pass to XLA
+        "replaces": None,
+        "launches": LS.TALLY.count,
+        "launches_by_path": {
+            **{f"facade_{path}": n
+               for path, n in facade["ls_launches"].items()},
+            "pm3d": ladder["pm3d"]["ls_launches"]},
+        "max_rel_err": ls_err,
+        "ms": ls_times[(33, 4, 24, FACADE_B)]["kernel"],
+        "route_ms": ls_times[(33, 4, 24, FACADE_B)]["route"],
+        "plain_ms": ls_times[(33, 4, 24, FACADE_B)]["plain"],
+        "bound_ms": ls_times[(33, 4, 24, FACADE_B)]["bound"],
+        "bound_by": ls_times[(33, 4, 24, FACADE_B)]["bound_by"],
+        "library_ms": None,
+        "by_shape": {"K%d_w%d_n%d_B%d" % shape: t
+                     for shape, t in ls_times.items()},
+        "trip_ops": ls_ops,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

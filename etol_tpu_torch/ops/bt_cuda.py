@@ -24,7 +24,6 @@ in shared memory) for longer horizons.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -37,16 +36,14 @@ import time
 import torch
 
 from ..solve import btridiag
+from .tally import Tally
 
-#: kernel launches made by :func:`solve` in this process, those a CUDA
-#: graph captured counted at each replay (:func:`replayed`); a run reads
-#: it to show that its KKT solves went through the kernel
-LAUNCHES = 0
-#: the same launches by (variant, K, w, batch size)
-LAUNCHES_BY = {}
-# open records of launches a CUDA graph's capture takes in (innermost
-# last): see recording()
-_RECORDS = []
+#: kernel launches made by :func:`solve` in this process, by (variant, K,
+#: w, batch size), those a CUDA graph captured counted at each replay; a
+#: run reads it to show that its KKT solves went through the kernel
+TALLY = Tally()
+#: ``TALLY.by``, under the name the benchmark's harness reads
+LAUNCHES_BY = TALLY.by
 
 MAX_W = 9
 WARP = 32
@@ -259,39 +256,6 @@ def _check(D, O, r):
         raise ValueError("K must be at least 1")
 
 
-@contextlib.contextmanager
-def recording():
-    """Count the launches made inside into the dict it yields, by
-    (variant, K, w, batch size), and not into LAUNCHES: a CUDA graph's
-    capture records the kernel into the graph and runs nothing, so its
-    launches happen at each replay, where :func:`replayed` adds them."""
-    tally = {}
-    _RECORDS.append(tally)
-    try:
-        yield tally
-    finally:
-        _RECORDS.pop()
-
-
-def replayed(tally: dict, times: int = 1) -> None:
-    """Add the launches of a captured graph (``tally``, from
-    :func:`recording`) to LAUNCHES and LAUNCHES_BY for ``times``
-    replays."""
-    global LAUNCHES
-    for key, n in tally.items():
-        LAUNCHES += n * times
-        LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + n * times
-
-
-def _count(key) -> None:
-    """One launch at ``key``: into the innermost open record, else into
-    the counters."""
-    if _RECORDS:
-        _RECORDS[-1][key] = _RECORDS[-1].get(key, 0) + 1
-    else:
-        replayed({key: 1})
-
-
 def solve(D, O, r, variant: str | None = None):
     """x [B, K, w] with H x = r after one refinement pass. CPU tensors:
     the plain version; CUDA tensors: the kernel :func:`plan` names, or an
@@ -310,7 +274,7 @@ def solve(D, O, r, variant: str | None = None):
     rc = launch(build(), pl, D, O, r, x)
     if rc != 0:
         raise RuntimeError(f"bt_solve kernel launch failed: cudaError {rc}")
-    _count((pl.variant, K, w, B))
+    TALLY.add((pl.variant, K, w, B))
     return x
 
 

@@ -19,39 +19,18 @@ O[..., k], H[k+1,k] = O[..., k]^T. Intended for the damped AL Hessian
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 
 from ..solve import btridiag
 from ..solve.btridiag import _chol, _tri_solve
+from .tally import Tally
 
-#: calls of :func:`solve_refined` in this process, those a CUDA graph
-#: captured counted at each replay; a run reads it to show which KKT
-#: route its solves took
-SOLVES = 0
-# open records of solves a CUDA graph's capture takes in (innermost last)
-_RECORDS = []
-
-
-@contextlib.contextmanager
-def recording():
-    """Count the solves made inside into the dict it yields (``{"solves":
-    n}``) and not into SOLVES: a CUDA graph's capture records them, and
-    they run at each replay, where :func:`replayed` adds them."""
-    tally = {"solves": 0}
-    _RECORDS.append(tally)
-    try:
-        yield tally
-    finally:
-        _RECORDS.pop()
-
-
-def replayed(tally: dict, times: int = 1) -> None:
-    """Add a captured graph's solves (``tally``) for ``times`` replays."""
-    global SOLVES
-    SOLVES += tally["solves"] * times
+#: calls of :func:`solve_refined` in this process, by (K, w, leading
+#: dims), those a CUDA graph captured counted at each replay; a run reads
+#: it to show which KKT route its solves took
+TALLY = Tally()
 
 
 def _inv_apply(Dk, *rhs):
@@ -154,10 +133,7 @@ def solve_refined(D, O, r):
     solve on the residual), which is how every caller uses it: the
     refinement rescues float32 accuracy when rho makes the system
     ill-conditioned."""
-    if _RECORDS:
-        _RECORDS[-1]["solves"] += 1
-    else:
-        replayed({"solves": 1})
+    TALLY.add((D.shape[-3], D.shape[-1]) + tuple(D.shape[:-3]))
     x = solve(D, O, r)
     resid = r - btridiag.matvec(D, O, x)
     return x + solve(D, O, resid)

@@ -23,7 +23,6 @@ outside :func:`models`.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -32,15 +31,11 @@ import os
 import torch
 
 from . import bt_cuda
+from .tally import Tally
 
-#: kernel launches made by :func:`coupling` in this process, those a CUDA
-#: graph captured counted at each replay (:func:`replayed`)
-LAUNCHES = 0
-#: the same launches by (K, w, batch size)
-LAUNCHES_BY = {}
-# open records of launches a CUDA graph's capture takes in (innermost
-# last): see recording()
-_RECORDS = []
+#: kernel launches made by :func:`coupling` in this process, by (K, w,
+#: batch size), those a CUDA graph captured counted at each replay
+TALLY = Tally()
 
 _SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(__file__)), "csrc", "hs_coupling.cu"
@@ -130,37 +125,6 @@ def _check(model, Z, lam, rho, cs, dt):
             "runs _ALFuncs._pair_coupling elsewhere (takes())")
 
 
-@contextlib.contextmanager
-def recording():
-    """Count the launches made inside into the dict it yields, by (K, w,
-    batch size), and not into LAUNCHES: a CUDA graph's capture records the
-    kernel into the graph and runs nothing, so its launches happen at each
-    replay, where :func:`replayed` adds them."""
-    tally = {}
-    _RECORDS.append(tally)
-    try:
-        yield tally
-    finally:
-        _RECORDS.pop()
-
-
-def replayed(tally: dict, times: int = 1) -> None:
-    """Add the launches of a captured graph (``tally``, from
-    :func:`recording`) to LAUNCHES and LAUNCHES_BY for ``times``
-    replays."""
-    global LAUNCHES
-    for key, n in tally.items():
-        LAUNCHES += n * times
-        LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + n * times
-
-
-def _count(key) -> None:
-    if _RECORDS:
-        _RECORDS[-1][key] = _RECORDS[-1].get(key, 0) + 1
-    else:
-        replayed({key: 1})
-
-
 def coupling(dynamics_fn, Z, lam, rho, cs, dt, exact: bool = True):
     """(Dc [B, K, w, w], O [B, K-1, w, w]) of the model ``dynamics_fn``
     (a key of :func:`models`) at Z [B, K, w] with the defect multipliers
@@ -188,7 +152,7 @@ def coupling(dynamics_fn, Z, lam, rho, cs, dt, exact: bool = True):
     if rc != 0:
         raise RuntimeError(
             f"hs_coupling kernel launch failed: cudaError {rc}")
-    _count((K, w, B))
+    TALLY.add((K, w, B))
     return Dc, O
 
 

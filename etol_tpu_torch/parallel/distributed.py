@@ -147,15 +147,15 @@ def demo(device, B: int = 8) -> dict:
     ("ticks") with their p50; the SPIKE solve of a K=16, w=3 system with
     one slab a rank against the plain solve; and a horizon-sharded solve
     of the dry-run's problem at K=16, one slab a rank, against the
-    unsharded solve. Returns the findings, this rank's kernel launches
-    included."""
+    unsharded solve. Returns the findings, this rank's launches of the
+    KKT and the line search kernels included."""
     import statistics
     import time
 
     import torch.distributed as dist
 
-    from ..ops import bt_cuda
-    from ..solve import btridiag
+    from ..ops import bt_cuda, ls_candidates
+    from ..solve import btridiag, trip_graph
     from ..solve import al_sqp
     from ..solve.al_sqp import SolverConfig
     from . import kkt
@@ -226,6 +226,7 @@ def demo(device, B: int = 8) -> dict:
     if horizon["status"] != 1 or not abs(horizon["obj"] - horizon[
             "obj_single"]) <= 1e-3 + 1e-3 * abs(horizon["obj_single"]):
         raise AssertionError(f"horizon-sharded over the ranks: {horizon}")
+    trip_graph.settle()
     return dict(
         rank=dist.get_rank(), world=dist.get_world_size(), device=str(dev),
         backend=dist.get_backend(), lanes=[off, off + lb],
@@ -233,9 +234,11 @@ def demo(device, B: int = 8) -> dict:
         warm_tick_p50_ms=statistics.median(lats) * 1e3,
         warm_solved=warm_solved, spike_max_abs_err=spike_err,
         horizon=horizon,
-        launches=bt_cuda.LAUNCHES,
+        launches=bt_cuda.TALLY.count,
         launches_by={"K%d_w%d_B%d" % key[1:]: n
-                     for key, n in sorted(bt_cuda.LAUNCHES_BY.items())},
+                     for key, n in sorted(bt_cuda.TALLY.by.items())},
+        ls_launches_by={"K%d_w%d_n%d_B%d" % key: n for key, n in
+                        sorted(ls_candidates.TALLY.by.items())},
     )
 
 

@@ -51,6 +51,16 @@ the route is chosen from the input when the building blocks are made
 (``_ALFuncs.coupling``), and everything else keeps ``_pair_coupling`` or
 its scheme's own path.
 
+The line search. The candidate pass of a memoryless euler or trapezoidal
+problem whose dynamics are ``xdot = u[:nx]`` and which has no user path
+rows (``ocp_2d_ex1`` through the facade, the 3-D point mass) is one
+launch of the CUDA kernel of :mod:`..ops.ls_candidates` for float32 on a
+card: every candidate's point, AL value less the cost and decrease, the
+user's running cost added in PyTorch; a second launch gives the chosen
+step's point, defects and rows. The route is chosen from the input when
+the building blocks are made (``_ALFuncs.line_search``); everything else
+keeps the candidates' residuals under ``vmap``.
+
 Precision. Float32 by default, with reduced-precision matmul modes off:
 the reference pins ``Precision.HIGHEST`` because reduced-precision
 products corrupt the Gauss-Newton blocks once rho is large.
@@ -70,7 +80,7 @@ torch.set_float32_matmul_precision("highest")
 
 from ..core.problem import VGPData, map_lanes, tree_map
 from ..core.types import Status
-from ..ops import bt_cuda, cyclic_reduction, hs_coupling
+from ..ops import bt_cuda, cyclic_reduction, hs_coupling, ls_candidates
 from ..transcribe.nlp import NLP
 from ..utils import profiling
 from . import btridiag, shooting
@@ -259,6 +269,13 @@ class _ALFuncs:
         # on a card; _pair_coupling (or the scheme's own path) elsewhere
         self.coupling = ("kernel" if hs_coupling.takes(nlp, self.dtype, dev)
                          else "plain")
+        # the line search's candidate pass, from the input alone: the
+        # kernel for float32 separable problems whose dynamics it holds,
+        # without user rows, on a card; the candidates' residuals under
+        # vmap elsewhere
+        self.line_search = (
+            "kernel" if ls_candidates.takes(nlp, self.dtype, dev)
+            else "plain")
         self.ks_step = torch.arange(d.nsteps, device=dev)
         self.ks_node = torch.arange(self.K, device=dev)
         lb, ub = self._lanes(nlp.bounds)
@@ -332,6 +349,25 @@ class _ALFuncs:
             return res, vmap(lambda Z: self._cost_lane(data, Z))(Zs)
 
         return self._lanes(lane, self.cscale, self.track_ctrs, Zc)
+
+    def candidate_cost(self, Zc):
+        """Cost of Zc [B, n, K, w], n candidates per lane, [B, n]."""
+        return self._lanes(
+            lambda data, Zs: vmap(lambda Z: self._cost_lane(data, Z))(Zs),
+            Zc)
+
+    def ls_kernel(self, Z, p, grad_, alphas, lam_def, mu, rho, sel=None):
+        """The line search's candidate pass on the kernel route
+        (:mod:`..ops.ls_candidates`): every candidate's (Zc [B, n, K, w],
+        AL value less the cost [B, n], decrease [B, n]); with ``sel`` [B],
+        the chosen candidates' (Z [B, K, w], c_def, g)."""
+        lanes = ls_candidates.Lanes.of(self.lb, self.ub, self.cscale,
+                                       self.track_ctrs, self.data)
+        args = (self.nlp, lanes) + tuple(t.contiguous() for t in (
+            Z, p, grad_, alphas, lam_def, mu, rho))
+        if sel is None:
+            return ls_candidates.candidates(*args)
+        return ls_candidates.chosen(*args, sel.contiguous())
 
     @staticmethod
     def al_from_parts(J, c_def, c_eq, g, lam_def, lam_eq, mu, rho):
@@ -804,16 +840,24 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
     # residual pass for all candidates
     _ls_stamp(F, -1)
     alphas = 0.5**exps
-    Zc = torch.clamp(
-        Z[:, None] + alphas[None, :, None, None] * p[:, None],
-        F.lb[:, None], F.ub[:, None],
-    )                                                     # [B, n, K, w]
-    (cdc, cec, gc), costc = F.candidate_residuals(Zc)
-    valc = F.al_from_parts(
-        costc, cdc, cec, gc, lam_def[:, None], lam_eq[:, None],
-        mu[:, None], rho[:, None],
-    )
-    decc = torch.sum(grad_[:, None] * (Zc - Z[:, None]), dim=(2, 3))
+    if F.line_search == "kernel":
+        # one launch for every candidate of every lane; the user's cost
+        # over the candidates it writes
+        Zc, partc, decc = F.ls_kernel(Z, p, grad_, alphas, lam_def, mu,
+                                      rho)
+        costc = F.candidate_cost(Zc)
+        valc = costc + partc
+    else:
+        Zc = torch.clamp(
+            Z[:, None] + alphas[None, :, None, None] * p[:, None],
+            F.lb[:, None], F.ub[:, None],
+        )                                                 # [B, n, K, w]
+        (cdc, cec, gc), costc = F.candidate_residuals(Zc)
+        valc = F.al_from_parts(
+            costc, cdc, cec, gc, lam_def[:, None], lam_eq[:, None],
+            mu[:, None], rho[:, None],
+        )
+        decc = torch.sum(grad_[:, None] * (Zc - Z[:, None]), dim=(2, 3))
     okc = (
         (valc <= ref[:, None] + cfg.ls_c1 * decc)
         & torch.isfinite(valc)
@@ -833,10 +877,20 @@ def _body(F: _ALFuncs, cfg: SolverConfig, st: dict, exps,
     nsteps_ls = exp_sel + 1.0
 
     move = (~inner_done) & (~done) & ls_ok
-    Znew = _sel(move, Zc[lanes, sel], Z)
-    cd_n = _sel(move, cdc[lanes, sel], cd)
-    ce_n = _sel(move, cec[lanes, sel], ce)
-    g_n = _sel(move, gc[lanes, sel], g)
+    if F.line_search == "kernel":
+        # the chosen step's point, defects and rows from a second launch;
+        # no user equality rows on this route
+        Zs, cd_s, g_s = F.ls_kernel(Z, p, grad_, alphas, lam_def, mu, rho,
+                                    sel)
+        Znew = _sel(move, Zs, Z)
+        cd_n = _sel(move, cd_s, cd)
+        ce_n = ce
+        g_n = _sel(move, g_s, g)
+    else:
+        Znew = _sel(move, Zc[lanes, sel], Z)
+        cd_n = _sel(move, cdc[lanes, sel], cd)
+        ce_n = _sel(move, cec[lanes, sel], ce)
+        g_n = _sel(move, gc[lanes, sel], g)
     cost_n = torch.where(move, costc[lanes, sel], cost)
     val_new = torch.where(move, valc[lanes, sel], val)
     _ls_stamp(F, 0)

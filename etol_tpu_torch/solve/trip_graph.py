@@ -66,10 +66,9 @@ Counts. The trips of a device loop are known on the card, in the loop's
 two device counters. A solve never waits on them: :func:`settle` reads
 the counters of every loop launched since the last read (one read for
 all) and adds what they gained to ``COUNTS["trips"]``, to the launch
-tallies (``bt_cuda``'s, ``cyclic_reduction``'s and ``hs_coupling``'s
-counters add a graph's recorded launches for each trip) and to
-``graph_loop``'s counts. Call it before reading a count; the cache calls
-it before it drops an entry.
+tallies (``ops.tally``: a graph's recorded launches of each kernel, for
+each trip) and to ``graph_loop``'s counts. Call it before reading a count;
+the cache calls it before it drops an entry.
 
 Card time. Every insertion of a loop has a stamp slot of its own (a
 program's loops one slot each by their position in its body, a loop
@@ -159,7 +158,7 @@ import torch
 
 from ..core.problem import (tree_flatten, tree_flatten_with_paths,
                             tree_map, tree_unflatten)
-from ..ops import bt_cuda, cyclic_reduction, graph_loop, hs_coupling
+from ..ops import graph_loop, tally
 from ..utils import profiling
 from .al_sqp import (PHASES, SolverConfig, _active, _ALFuncs, _exponents,
                      _run_steps, _stamp, _trip)
@@ -437,7 +436,8 @@ class _Captured:
     :meth:`step`: what a trip's entry and a program's share."""
 
     graph = None
-    tally = cr_tally = hs_tally = None
+    #: the launches the capture recorded: (tally, record) pairs
+    records = ()
     pool_bytes = 0
     static_bytes = 0
     #: the entries of the loops a program's graph runs
@@ -453,24 +453,19 @@ class _Captured:
         for a loop's while node to clone."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
-        with bt_cuda.recording() as tally, \
-                cyclic_reduction.recording() as cr_tally, \
-                hs_coupling.recording() as hs_tally:
+        with tally.recording() as records:
             with torch.cuda.graph(graph):
                 reserved = torch.cuda.memory_reserved()
                 out = self.step()
                 self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.graph, self.tally = graph, tally
-        self.cr_tally, self.hs_tally = cr_tally, hs_tally
+        self.graph, self.records = graph, records
         COUNTS["captures"] += 1
         COUNTS["capture_s"] += time.perf_counter() - t0
         return out
 
     def _replayed(self, n: int) -> None:
         """Count the launches of ``n`` replays."""
-        bt_cuda.replayed(self.tally, n)
-        cyclic_reduction.replayed(self.cr_tally, n)
-        hs_coupling.replayed(self.hs_tally, n)
+        tally.replayed(self.records, n)
 
     def stamps(self) -> list:
         """The device tensors :func:`settle` reads: the loops' slots."""

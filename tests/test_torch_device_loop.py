@@ -41,7 +41,7 @@ from _torch_parity import HostReads, uas_batch
 from etol_tpu_torch.core import problem as tproblem
 from etol_tpu_torch.models import problems as tproblems
 from etol_tpu_torch.models import tuned as ttuned
-from etol_tpu_torch.ops import bt_cuda, graph_loop, hs_coupling
+from etol_tpu_torch.ops import bt_cuda, graph_loop, hs_coupling, tally
 from etol_tpu_torch.solve import al_sqp as tal
 from etol_tpu_torch.solve import trip_graph
 
@@ -285,12 +285,12 @@ def test_settle_reads_each_loops_counters_once():
     st = tal._start(F, tcfg, torch.from_numpy(z0),
                     tal.init_multipliers(tnlp, tb))
     entry = trip_graph._Entry(F, tcfg, st)
-    entry.tally, entry.cr_tally = {("smem", 12, 5, 4): 1}, {"solves": 0}
-    entry.hs_tally = {(12, 5, 4): 1}
-    saved = (dict(trip_graph.COUNTS), bt_cuda.LAUNCHES, graph_loop.LAUNCHES,
+    # a uas_2d trip's launches: a KKT solve and a step coupling
+    entry.records = [(bt_cuda.TALLY, {("smem", 12, 5, 4): 1}),
+                     (hs_coupling.TALLY, {(12, 5, 4): 1})]
+    saved = (dict(trip_graph.COUNTS), graph_loop.LAUNCHES,
              graph_loop.TRIPS)
-    saved_by = dict(bt_cuda.LAUNCHES_BY)
-    saved_hs = hs_coupling.LAUNCHES, dict(hs_coupling.LAUNCHES_BY)
+    saved_by = {t: dict(t.by) for t in tally.ALL}
     try:
         entry.counts.copy_(torch.tensor([7, 5]))
         trip_graph._UNREAD[entry] = None
@@ -300,16 +300,15 @@ def test_settle_reads_each_loops_counters_once():
         trip_graph.settle()
         trip_graph.settle()
         assert trip_graph.COUNTS["trips"] - saved[0]["trips"] == 7
-        assert bt_cuda.LAUNCHES - saved[1] == 7
-        assert hs_coupling.LAUNCHES - saved_hs[0] == 7
-        assert (graph_loop.LAUNCHES - saved[2],
-                graph_loop.TRIPS - saved[3]) == (10, 7)
+        gained = {t: t.count - sum(saved_by[t].values()) for t in tally.ALL}
+        assert gained[bt_cuda.TALLY] == gained[hs_coupling.TALLY] == 7
+        assert sum(gained.values()) == 14  # no other kernel's tally
+        assert (graph_loop.LAUNCHES - saved[1],
+                graph_loop.TRIPS - saved[2]) == (10, 7)
         assert entry.read == (10, 7) and not trip_graph._UNREAD
     finally:
         trip_graph.COUNTS.update(saved[0])
-        bt_cuda.LAUNCHES, graph_loop.LAUNCHES, graph_loop.TRIPS = saved[1:]
-        bt_cuda.LAUNCHES_BY.clear()
-        bt_cuda.LAUNCHES_BY.update(saved_by)
-        hs_coupling.LAUNCHES = saved_hs[0]
-        hs_coupling.LAUNCHES_BY.clear()
-        hs_coupling.LAUNCHES_BY.update(saved_hs[1])
+        graph_loop.LAUNCHES, graph_loop.TRIPS = saved[1:]
+        for t, by in saved_by.items():
+            t.clear()
+            t.by.update(by)

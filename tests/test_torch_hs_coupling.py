@@ -71,7 +71,7 @@ def _batch(nlp_vgp, B, dtype=torch.float32):
 
 
 def test_cpu_solver_takes_the_plain_route_and_launches_nothing():
-    launches = hs_coupling.LAUNCHES, dict(hs_coupling.LAUNCHES_BY)
+    launches = hs_coupling.TALLY.count, dict(hs_coupling.TALLY.by)
     nlp, data = _batch(_uas(), 3)
     F = tal._ALFuncs(nlp, tal.SolverConfig(), data)
     assert F.coupling == "plain"
@@ -84,7 +84,7 @@ def test_cpu_solver_takes_the_plain_route_and_launches_nothing():
                        torch.ones(B, K, w, dtype=torch.bool),
                        torch.full((B,), 1e-3), g)
     assert torch.isfinite(D).all() and torch.isfinite(O).all()
-    assert (hs_coupling.LAUNCHES, hs_coupling.LAUNCHES_BY) == launches
+    assert (hs_coupling.TALLY.count, hs_coupling.TALLY.by) == launches
 
 
 def _args(B=2, K=6, device="meta", **change):
@@ -113,10 +113,10 @@ def _args(B=2, K=6, device="meta", **change):
     ({}, ValueError),
 ])
 def test_wrapper_checks_before_any_launch(change, error):
-    launches = hs_coupling.LAUNCHES, dict(hs_coupling.LAUNCHES_BY)
+    launches = hs_coupling.TALLY.count, dict(hs_coupling.TALLY.by)
     with pytest.raises(error):
         hs_coupling.coupling(dynamics.unicycle, **_args(**change))
-    assert (hs_coupling.LAUNCHES, hs_coupling.LAUNCHES_BY) == launches
+    assert (hs_coupling.TALLY.count, hs_coupling.TALLY.by) == launches
 
 
 def test_wrapper_refuses_cpu_tensors_and_other_dynamics():
@@ -124,19 +124,18 @@ def test_wrapper_refuses_cpu_tensors_and_other_dynamics():
         hs_coupling.coupling(dynamics.unicycle, **_args(device="cpu"))
     with pytest.raises(ValueError, match="no device code"):
         hs_coupling.coupling(_unicycle_body, **_args())
-    assert hs_coupling.LAUNCHES == 0
+    assert hs_coupling.TALLY.count == 0
 
 
 def test_captured_launches_count_at_each_replay(monkeypatch):
-    monkeypatch.setattr(hs_coupling, "LAUNCHES", 0)
-    monkeypatch.setattr(hs_coupling, "LAUNCHES_BY", {})
-    with hs_coupling.recording() as tally:
-        hs_coupling._count((51, 5, 64))
-    assert tally == {(51, 5, 64): 1} and hs_coupling.LAUNCHES == 0
-    hs_coupling.replayed(tally, 7)
-    hs_coupling._count((51, 5, 1))
-    assert hs_coupling.LAUNCHES == 8
-    assert hs_coupling.LAUNCHES_BY == {(51, 5, 64): 7, (51, 5, 1): 1}
+    monkeypatch.setattr(hs_coupling.TALLY, "by", {})
+    with hs_coupling.TALLY.recording() as record:
+        hs_coupling.TALLY.add((51, 5, 64))
+    assert record == {(51, 5, 64): 1} and hs_coupling.TALLY.count == 0
+    hs_coupling.TALLY.replayed(record, 7)
+    hs_coupling.TALLY.add((51, 5, 1))
+    assert hs_coupling.TALLY.count == 8
+    assert hs_coupling.TALLY.by == {(51, 5, 64): 7, (51, 5, 1): 1}
 
 
 def test_cost_counts_each_tensor_once():

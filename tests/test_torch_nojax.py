@@ -50,7 +50,7 @@ MODULES = [
     "models/__init__", "models/dynamics", "models/fleet", "models/problems",
     "models/tuned",
     "ops/__init__", "ops/bt_cuda", "ops/cyclic_reduction", "ops/graph_loop",
-    "ops/hs_coupling",
+    "ops/hs_coupling", "ops/ls_candidates", "ops/tally",
     "parallel/__init__", "parallel/axis", "parallel/distributed",
     "parallel/dryrun", "parallel/horizon", "parallel/kkt", "parallel/mesh",
     "parallel/solve_sharded",
@@ -108,9 +108,9 @@ def test_cpu_main_path_runs():
     assert batch.x0.shape == (B, 3)
     assert float((batch.x0[:, :2]).abs().max()) <= 0.5
     cfg, stages = tuned.tuned_config("uas_2d", batch=B)
-    before = bt_cuda.LAUNCHES
+    before = bt_cuda.TALLY.count
     cold = bench_harness.run_cold(nlp, cfg, batch, stages, gen)
-    assert bt_cuda.LAUNCHES == before  # CPU tensors: the plain version
+    assert bt_cuda.TALLY.count == before  # CPU tensors: the plain version
     assert len(cold["stage_trips"]) == 1 + len(stages)
     assert cold["solved_fraction"] >= 0.75
     assert cold["audit_node_depth_max"] <= 1e-3

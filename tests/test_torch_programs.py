@@ -36,7 +36,8 @@ from etol_tpu.models import problems as jproblems
 from etol_tpu.solve import al_sqp as jal
 from etol_tpu_torch.core.types import Status
 from etol_tpu_torch.models import problems as tproblems
-from etol_tpu_torch.ops import bt_cuda, graph_loop, hs_coupling
+from etol_tpu_torch.ops import (bt_cuda, graph_loop, hs_coupling,
+                                ls_candidates, tally)
 from etol_tpu_torch.parallel import make_mesh
 from etol_tpu_torch.parallel.kkt import make_solver
 from etol_tpu_torch.solve import al_sqp as tal
@@ -363,12 +364,12 @@ def test_two_programs_hold_one_loop(monkeypatch):
         trip_graph._CACHE.move_to_end(key)  # replayed: the entry is oldest
     assert next(iter(trip_graph._CACHE.values())) is entry
 
-    # the OCP is trapezoidal: its trips launch no step coupling kernel
-    entry.tally, entry.cr_tally = {("smem", 33, 4, 1): 1}, {"solves": 0}
-    entry.hs_tally = {}
-    saved = (dict(trip_graph.COUNTS), bt_cuda.LAUNCHES, graph_loop.LAUNCHES,
-             graph_loop.TRIPS, dict(bt_cuda.LAUNCHES_BY),
-             hs_coupling.LAUNCHES)
+    # the OCP is trapezoidal: its trips launch no step coupling kernel,
+    # and on a card the line search's two candidate kernels
+    entry.records = [(bt_cuda.TALLY, {("smem", 33, 4, 1): 1}),
+                     (ls_candidates.TALLY, {(33, 4, 24, 1): 2})]
+    saved = (dict(trip_graph.COUNTS), graph_loop.LAUNCHES, graph_loop.TRIPS)
+    saved_by = {t: dict(t.by) for t in tally.ALL}
     try:
         entry.counts.copy_(torch.tensor([entry.read[0] + 6,
                                          entry.read[1] + 5]))
@@ -377,15 +378,21 @@ def test_two_programs_hold_one_loop(monkeypatch):
         trip_graph.settle()
         trip_graph.settle()
         assert trip_graph.COUNTS["trips"] - saved[0]["trips"] == 5
-        assert bt_cuda.LAUNCHES - saved[1] == 5
-        assert hs_coupling.LAUNCHES == saved[5]
-        assert (graph_loop.LAUNCHES - saved[2],
-                graph_loop.TRIPS - saved[3]) == (6, 5)
+        gained = {t: t.count - sum(saved_by[t].values()) for t in tally.ALL}
+        assert gained[bt_cuda.TALLY] == 5
+        assert gained[hs_coupling.TALLY] == 0
+        assert gained[ls_candidates.TALLY] == 10
+        assert ls_candidates.TALLY.by[(33, 4, 24, 1)] - saved_by[
+            ls_candidates.TALLY].get((33, 4, 24, 1), 0) == 10
+        assert sum(gained.values()) == 15  # no other kernel's tally
+        assert (graph_loop.LAUNCHES - saved[1],
+                graph_loop.TRIPS - saved[2]) == (6, 5)
     finally:
         trip_graph.COUNTS.update(saved[0])
-        bt_cuda.LAUNCHES, graph_loop.LAUNCHES, graph_loop.TRIPS = saved[1:4]
-        bt_cuda.LAUNCHES_BY.clear()
-        bt_cuda.LAUNCHES_BY.update(saved[4])
+        graph_loop.LAUNCHES, graph_loop.TRIPS = saved[1:]
+        for t, by in saved_by.items():
+            t.clear()
+            t.by.update(by)
 
     monkeypatch.setattr(trip_graph, "MAX_ENTRIES", 2)
     trip_graph._evict(td.x0.device)

@@ -341,7 +341,7 @@ def test_float64_search_keeps_off_the_kernel(monkeypatch):
     monkeypatch.setattr(bt_cuda, "solve", refuse)
     tv, tn = _corridor(VGP, NLP, dynamics)
     td, _ = tv.to_device(dtype=torch.float64, device="cpu")
-    before = cyclic_reduction.SOLVES
+    before = cyclic_reduction.TALLY.count
     rt = tsb.solve_exact(tn, tal.SolverConfig(), td, wave=4, max_nodes=64)
     assert rt.status == int(Status.SOLVED) and rt.z.dtype == np.float64
-    assert cyclic_reduction.SOLVES - before == rt.trips > 0
+    assert cyclic_reduction.TALLY.count - before == rt.trips > 0

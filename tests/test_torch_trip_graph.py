@@ -41,7 +41,7 @@ from _torch_parity import HostReads
 from etol_tpu_torch.core import problem as tproblem
 from etol_tpu_torch.models import problems as tproblems
 from etol_tpu_torch.models import tuned as ttuned
-from etol_tpu_torch.ops import bt_cuda, cyclic_reduction
+from etol_tpu_torch.ops import bt_cuda, cyclic_reduction, tally
 from etol_tpu_torch.parallel import make_mesh
 from etol_tpu_torch.parallel.solve_sharded import solve_horizon_sharded
 from etol_tpu_torch.solve import al_sqp as tal
@@ -290,33 +290,48 @@ def test_loop_routes_from_its_arguments():
 
 def test_launch_tallies_of_a_captured_graph():
     """What a capture records stays out of the counters and is added at
-    each replay, by (variant, K, w, batch) for the kernel and by solve for
-    cyclic reduction; records nest, the innermost taking the launches."""
-    bt_cuda.LAUNCHES = 0
-    bt_cuda.LAUNCHES_BY.clear()
-    with bt_cuda.recording() as outer:
-        bt_cuda._count(("smem", 51, 5, 8))
-        with bt_cuda.recording() as inner:
-            bt_cuda._count(("stream", 2048, 5, 1))
-        bt_cuda._count(("smem", 51, 5, 8))
-    assert bt_cuda.LAUNCHES == 0 and not bt_cuda.LAUNCHES_BY
+    each replay, by (variant, K, w, batch) for the kernel and by (K, w,
+    batch) for cyclic reduction's solves; records nest, the innermost
+    taking the launches; ``tally.recording`` opens one on every tally."""
+    bt_cuda.TALLY.clear()
+    with bt_cuda.TALLY.recording() as outer:
+        bt_cuda.TALLY.add(("smem", 51, 5, 8))
+        with bt_cuda.TALLY.recording() as inner:
+            bt_cuda.TALLY.add(("stream", 2048, 5, 1))
+        bt_cuda.TALLY.add(("smem", 51, 5, 8))
+    assert bt_cuda.TALLY.count == 0 and not bt_cuda.TALLY.by
     assert outer == {("smem", 51, 5, 8): 2}
     assert inner == {("stream", 2048, 5, 1): 1}
-    bt_cuda.replayed(outer, 3)
-    bt_cuda.replayed(inner)
-    bt_cuda._count(("smem", 51, 5, 8))
-    assert bt_cuda.LAUNCHES == 8
-    assert bt_cuda.LAUNCHES_BY == {("smem", 51, 5, 8): 7,
-                                   ("stream", 2048, 5, 1): 1}
+    bt_cuda.TALLY.replayed(outer, 3)
+    bt_cuda.TALLY.replayed(inner)
+    bt_cuda.TALLY.add(("smem", 51, 5, 8))
+    assert bt_cuda.TALLY.count == 8
+    assert bt_cuda.TALLY.by == {("smem", 51, 5, 8): 7,
+                                ("stream", 2048, 5, 1): 1}
+    assert bt_cuda.LAUNCHES_BY is bt_cuda.TALLY.by  # the harness's name
 
     rng = np.random.default_rng(0)
     A = rng.normal(size=(2, 5, 3, 3)).astype(np.float32)
     D = torch.from_numpy(A @ A.transpose(0, 1, 3, 2) + 4 * np.eye(3))
     O = torch.from_numpy(0.2 * rng.normal(size=(2, 4, 3, 3))).float()
     r = torch.from_numpy(rng.normal(size=(2, 5, 3))).float()
-    cyclic_reduction.SOLVES = 0
-    with cyclic_reduction.recording() as tally:
+    cyclic_reduction.TALLY.clear()
+    with cyclic_reduction.TALLY.recording() as record:
         cyclic_reduction.solve_refined(D.float(), O, r)
-    assert cyclic_reduction.SOLVES == 0 and tally == {"solves": 1}
-    cyclic_reduction.replayed(tally, 4)
-    assert cyclic_reduction.SOLVES == 4
+    assert cyclic_reduction.TALLY.count == 0 and record == {(5, 3, 2): 1}
+    cyclic_reduction.TALLY.replayed(record, 4)
+    assert cyclic_reduction.TALLY.count == 4
+
+    bt_cuda.TALLY.clear()
+    cyclic_reduction.TALLY.clear()
+    with tally.recording() as records:
+        bt_cuda.TALLY.add(("smem", 33, 4, 1))
+        cyclic_reduction.solve_refined(D.float(), O, r)
+    assert {t for t, _ in records} == set(tally.ALL)
+    assert {t: rec for t, rec in records if rec} == {
+        bt_cuda.TALLY: {("smem", 33, 4, 1): 1},
+        cyclic_reduction.TALLY: {(5, 3, 2): 1}}
+    assert not bt_cuda.TALLY.by and not cyclic_reduction.TALLY.by
+    tally.replayed(records, 3)
+    assert bt_cuda.TALLY.by == {("smem", 33, 4, 1): 3}
+    assert cyclic_reduction.TALLY.by == {(5, 3, 2): 3}
